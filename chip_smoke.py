@@ -5,15 +5,19 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (``zpaqfranz_tpu_torch/csrc/*.cu``, with
-``nvcc`` into ``zpaqfranz_tpu_torch/build/``), holds each kernel bit-exact
-against its plain PyTorch version, holds the CM decode kernel against the
-native host decode, then drives the port's main path on the card: ``add``
-writes seeded corpora as jidac archives at -m4 (16 MiB blocks), -m3 and
--m5 on the host, ``extract`` restores them through the CM decode kernel,
-``verify_archive`` checks every fragment through the SHA-1 kernel, and a
-flipped byte inside a d block must raise ``ExtractError``. Scratch files go
-to ``build/smoke/`` and are removed at the end.
+It builds the port's four CUDA kernels (``zpaqfranz_tpu_torch/csrc/*.cu``,
+one ``nvcc`` each, all started together, into
+``zpaqfranz_tpu_torch/build/``), holds each kernel bit-exact against its
+plain PyTorch version, holds the CM decode and encode kernels against the
+native host engine, then drives the port's main path on the card at -m4
+(16 MiB blocks), -m3 and -m5: ``add`` writes a seeded corpus as a jidac
+archive through the CM encode kernel, byte-identical to the host engine's
+``add`` of the same tree and date; ``extract`` restores it through the CM
+decode kernel; ``verify_archive`` checks every fragment through the SHA-1
+kernel; ``sum -sha1`` and ``sum -sha256`` hash the corpus through the SHA-1
+and SHA-256 kernels; and a flipped byte inside a d block must raise
+``ExtractError``. Scratch files go to ``build/smoke/`` and are removed at
+the end.
 
 Output: per-phase lines, then one JSON line of kernel measurements, the
 card's name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -23,7 +27,9 @@ directory that does not hold the repository.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import pathlib
@@ -32,6 +38,7 @@ import subprocess
 import sys
 import time
 
+T0 = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "build" / "smoke"
 
@@ -39,21 +46,33 @@ WORK = ROOT / "build" / "smoke"
 # = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# 32-bit integer operations of one SHA-1 compression (FIPS 180-4): per
-# round rotl(a,5) + f (3) + 4 adds + rotl(b,30); 64 schedule words at
-# 3 xors + 1 rotl; 5 final adds.
-SHA1_OPS_PER_BLOCK = 80 * 9 + 64 * 4 + 5
+# Instructions of one SHA-1 compression (FIPS 180-4) as Hopper issues them,
+# counted from csrc/sha1_lanes.cu with 3-input logic fused into one LOP3
+# and 3-input adds into one IADD3: per round rotl(a,5), f (1 LOP3), the
+# 5-term sum (2 IADD3), rotl(b,30); 64 schedule words at 2 LOP3 + 1 rotl;
+# 5 final adds. Loads and byte swaps are not counted.
+SHA1_OPS_PER_BLOCK = 80 * 5 + 64 * 3 + 5
+# The same for SHA-256 (csrc/sha256_lanes.cu): per round S1 and S0 (3
+# funnel shifts + 1 LOP3 each), ch and maj (1 LOP3 each), t1 (2 IADD3),
+# e and a (2 adds); 48 schedule words at s0 and s1 (3 shifts + 1 LOP3
+# each) and 2 IADD3; 8 final adds.
+SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 # 32-bit integer operations of one component's predict and update for one
 # coded bit (index, table read, arithmetic, clamp, write), counted loosely
-# from csrc/cm_decode.cu; the CM bound is bytes-bound either way.
+# from csrc/cm_model.cuh; the CM bound is bytes-bound either way.
 CM_OPS_PER_COMPONENT_BIT = 20
 
-# -m4 corpus: 16 MiB blocks (membits 24) are never cut; the corpus bytes
-# are sized to the CM kernel's measured rate per lane (see PERF.md).
+# main-path corpora: 16 MiB blocks (membits 24) at -m4 and -m5 are never
+# cut; the corpus bytes are sized to the CM kernels' measured rate per lane
+# (see PERF.md)
 M4_BYTES = 2 << 20
 M3_BYTES = 2 << 20
 M5_BYTES = 2 << 20
-SHA1_LANES = 4096
+# hash kernels: 4096 lanes of log-uniform lengths up to 256 KiB (the main
+# path hashes files and fragments of 1-175 KiB), held against the plain
+# version and hashlib, and timed
+HASH_LANES = 4096
+HASH_MAX = 256 << 10
 # CM kernel vs plain: four short lanes per model. The plain version runs a
 # few hundred tensor ops per coded bit (~80 ms per decoded byte at -m4), so
 # a main-path lane of ~1 MB would take about a day; longer lanes are held
@@ -142,37 +161,82 @@ def bound(nbytes: float, ops: float) -> tuple:
 # ---------------------------------------------------------------------------
 # kernel checks
 
-def check_sha1(torch, np, dev, seed: int) -> dict:
-    from zpaqfranz_tpu_torch.ops import sha1
-
-    rng = np.random.default_rng(seed)
+def hash_messages(np, rng, n: int, top: int) -> list:
+    """``n`` seeded messages: the padding's edge lengths, then log-uniform
+    lengths up to ``top`` bytes."""
     special = [0, 55, 56, 63, 64, 119, 120]
     lens = special + [int(x) for x in np.exp(rng.uniform(
-        0, np.log(256 << 10), SHA1_LANES - len(special)))]
-    msgs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lens]
+        0, np.log(top), n - len(special)))]
+    return [rng.integers(0, 256, k, dtype=np.uint8).tobytes() for k in lens]
+
+
+def graphed(torch, dev, fn, *shapes):
+    """``fn`` over int64 tensors of ``shapes`` on the card ``dev``, captured
+    once as a CUDA graph and replayed for each call: the same kernels,
+    without the host's dispatch of each tensor op, which bounds a plain
+    hash's block loop. Returns the graph's output tensor, rewritten by the
+    next call."""
+    args = [torch.zeros(s, dtype=torch.int64, device=dev) for s in shapes]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+
+    def run(*xs):
+        for a, x in zip(args, xs):
+            a.copy_(x)
+        graph.replay()
+        return out
+    return run
+
+
+def check_hash(torch, np, dev, seed: int, algo: str) -> dict:
+    """Hold a hash lane kernel (``sha1`` or ``sha256``) against its plain
+    version and hashlib on ``HASH_LANES`` lanes, and time both there. The
+    plain version runs its block loop with its compression replayed as a
+    CUDA graph (``graphed``)."""
+    from zpaqfranz_tpu_torch.ops import sha1, sha256
+
+    mod, ops_per_block, ref = {
+        "sha1": (sha1, SHA1_OPS_PER_BLOCK, hashlib.sha1),
+        "sha256": (sha256, SHA256_OPS_PER_BLOCK, hashlib.sha256)}[algo]
+    lanes = getattr(mod, f"{algo}_lanes")
+    rng = np.random.default_rng(seed)
+    msgs = hash_messages(np, rng, HASH_LANES, HASH_MAX)
     data, off, length = sha1.pack_messages(msgs, dev)
     # host -> device copy of the message bytes, as verify_archive does it
     flat = data.cpu().numpy()
     h2d_ms = wall_ms(torch, lambda: torch.from_numpy(flat).to(dev))
-    got = sha1.sha1_lanes(data, off, length)
+    got = lanes(data, off, length)
+    check(sha1.to_digests(got) == [ref(m).digest() for m in msgs],
+          f"{algo} kernel differs from hashlib")
+    ms = cuda_ms(torch, lambda: lanes(data, off, length), 5)
+    compress = graphed(torch, dev, mod._compress, (len(msgs), len(mod._IV)),
+                       (len(msgs), 16))
     torch.cuda.synchronize()
-    plain_ms = wall_ms(torch, lambda: sha1.sha1_plain(data, off, length))
-    plain = sha1.sha1_plain(data, off, length)
+    t0 = time.perf_counter()
+    want = sha1.plain_lanes(mod._IV, compress, data, off, length)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     err = int((got.view(torch.int32).long() & 0xFFFFFFFF).sub(
-        plain.view(torch.int32).long() & 0xFFFFFFFF).abs().max())
-    check(err == 0, "SHA-1 kernel differs from its plain version")
-    check(sha1.to_digests(got) == [hashlib.sha1(m).digest() for m in msgs],
-          "SHA-1 kernel differs from hashlib")
-    ms = cuda_ms(torch, lambda: sha1.sha1_lanes(data, off, length), 5)
-    blocks = sum((n + 9 + 63) // 64 for n in lens)
-    b_ms, b_by = bound(sum(lens) + 36 * len(lens),
-                       blocks * SHA1_OPS_PER_BLOCK)
-    log(f"sha1_lanes: {len(lens)} lanes, {sum(lens)} bytes: kernel {ms:.3f} "
-        f"ms ({sum(lens) / ms / 1e6:.2f} GB/s), plain {plain_ms:.1f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), host->device copy {h2d_ms:.2f} ms; "
-        f"digests match plain and hashlib")
-    return {"name": "sha1_lanes", "route": "cuda",
-            "source": "zpaqfranz_tpu_torch/csrc/sha1_lanes.cu",
+        want.view(torch.int32).long() & 0xFFFFFFFF).abs().max())
+    check(err == 0, f"{algo} kernel differs from its plain version")
+    nbytes = sum(map(len, msgs))
+    blocks = sum((len(m) + 9 + 63) // 64 for m in msgs)
+    state = ref().digest_size
+    b_ms, b_by = bound(nbytes + (16 + state) * len(msgs),
+                       blocks * ops_per_block)
+    log(f"{algo}_lanes: {len(msgs)} lanes, {nbytes} bytes: kernel {ms:.3f} "
+        f"ms ({nbytes / ms / 1e6:.2f} GB/s), bound {b_ms:.4f} ms ({b_by}, "
+        f"{ops_per_block} instructions per block), host->device copy "
+        f"{h2d_ms:.2f} ms; plain {plain_ms:.1f} ms (compression as a CUDA "
+        f"graph); digests match plain and hashlib")
+    return {"name": f"{algo}_lanes", "route": "cuda",
+            "source": f"zpaqfranz_tpu_torch/csrc/{algo}_lanes.cu",
             "replaces": "zpaqfranz_tpu/ops/hash_pallas.py:216",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -201,9 +265,9 @@ def lane_payloads(np, rng, sizes) -> list:
 
 
 def cm_touch_bytes(model, nbytes: int) -> int:
-    """Least global-memory bytes the CM kernel reads and writes to decode
+    """Least global-memory bytes a CM kernel reads and writes to code
     ``nbytes`` bytes of one lane, each byte counted once per use, from
-    ``predict``/``update`` in csrc/cm_decode.cu. Per coded bit: CM and MIX2
+    ``predict``/``update`` in csrc/cm_model.cuh. Per coded bit: CM and MIX2
     read and write one u32; ICM one state byte and one u32 counter; ISSE one
     state byte and two u32 weights; MIX m u32 weights; SSE reads two u32 and
     writes one; MATCH reads one history byte and rewrites another. Per byte:
@@ -220,13 +284,16 @@ def cm_touch_bytes(model, nbytes: int) -> int:
     return nbytes * (8 * bit + byte)
 
 
-def timed_cm(torch, cmd, model, packed) -> tuple:
-    """Decode through one prepared kernel launch. Returns the lanes' bytes,
+def timed_cm(torch, launch, model, packed) -> tuple:
+    """Code through one prepared launch of a CM kernel (``launch`` is
+    ``cm_decode.Launch`` or ``cm_encode.Launch``). Returns the lanes' bytes,
     the state set-up's milliseconds (host clock: the arenas' initial rows,
     copied to the card for every lane) and the launch's alone (CUDA
     events)."""
+    from zpaqfranz_tpu_torch.ops.cm_model import lanes_to_bytes
+
     t0 = time.perf_counter()
-    job = cmd.Launch(model, *packed)
+    job = launch(model, *packed)
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
     a = torch.cuda.Event(enable_timing=True)
@@ -235,19 +302,46 @@ def timed_cm(torch, cmd, model, packed) -> tuple:
     job.run()
     b.record()
     torch.cuda.synchronize()
-    return cmd.lanes_to_bytes(*job.result()), setup_ms, a.elapsed_time(b)
+    return lanes_to_bytes(*job.result()), setup_ms, a.elapsed_time(b)
+
+
+def byte_err(np, a: list, b: list) -> int:
+    """Largest absolute difference between the bytes of paired lanes."""
+    err = 0
+    for x, y in zip(a, b):
+        n = min(len(x), len(y))
+        d = np.abs(np.frombuffer(x[:n], np.uint8).astype(np.int64)
+                   - np.frombuffer(y[:n], np.uint8).astype(np.int64))
+        err = max(err, int(d.max()) if d.size else 0)
+    return err
+
+
+def cm_models() -> dict:
+    """The CM kernels' check models: -m3, -m4 and -m5 at 1 MiB blocks
+    ("4.0", "5.0"), all component types, and the main path's -m4 and -m5
+    (16 MiB blocks)."""
+    from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.zpaql.compiler import compile_config
+
+    models = {m: make_model(m)[0] for m in ("3", "4.0", "5.0", "4", "5")}
+    models["all-components"] = compile_config(ALL_COMPONENTS_CFG)[0]
+    return models
+
+
+def selector(model) -> bytes:
+    """The selector prefix a coded payload starts with: 1 + the PCOMP
+    program when the model has one, else 0."""
+    blob = model.pcomp_bytes()
+    return b"\x01" + blob if blob else b"\x00"
 
 
 def check_cm(torch, np, dev, seed: int) -> dict:
     from zpaqfranz_tpu_torch import native
-    from zpaqfranz_tpu_torch.codec.methods import make_model
     from zpaqfranz_tpu_torch.ops import cm_decode as cmd
     from zpaqfranz_tpu_torch.parallel.engine import parse_block_payload
-    from zpaqfranz_tpu_torch.zpaql.compiler import compile_config
 
     rng = np.random.default_rng(seed)
-    models = {m: make_model(m)[0] for m in ("3", "4.0", "5.0", "4", "5")}
-    models["all-components"] = compile_config(ALL_COMPONENTS_CFG)[0]
+    models = cm_models()
     err = 0
     plain_ms = None
     # kernel vs plain, 4 short lanes of mixed lengths per model; "4" and "5"
@@ -258,20 +352,15 @@ def check_cm(torch, np, dev, seed: int) -> dict:
         streams = [coded_stream(model, p) for p in pays]
         caps = [len(p) + 4096 for p in pays]
         packed = cmd.pack_streams(streams, caps, dev)
-        a, setup_ms, k_ms = timed_cm(torch, cmd, model, packed)
+        a, setup_ms, k_ms = timed_cm(torch, cmd.Launch, model, packed)
         t0 = time.perf_counter()
         plain = cmd.cm_decode_plain(model, *packed)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
         b = cmd.lanes_to_bytes(*plain)
-        for x, y in zip(a, b):
-            d = np.abs(np.frombuffer(x, np.uint8).astype(np.int64)
-                       - np.frombuffer(y, np.uint8).astype(np.int64))
-            err = max(err, int(d.max()) if d.size else 0)
+        err = max(err, byte_err(np, a, b))
         check(a == b, f"CM kernel differs from its plain version ({name})")
-        blob = model.pcomp_bytes()
-        prefix = b"\x01" + blob if blob else b"\x00"
-        check(a == [prefix + p for p in pays],
+        check(a == [selector(model) + p for p in pays],
               f"CM kernel output is not the coded payload ({name})")
         log(f"cm_decode vs plain [{name}]: {len(pays)} lanes "
             f"{sum(map(len, pays))} bytes, n={model.n}, "
@@ -289,7 +378,7 @@ def check_cm(torch, np, dev, seed: int) -> dict:
         blocks = [native.compress_block(model, p, b"t", b"c") for p in pays]
         streams = [parse_block_payload(b, 0)[2] for b in blocks]
         packed = cmd.pack_streams(streams, [len(p) + 8192 for p in pays], dev)
-        got, setup_ms, k_ms = timed_cm(torch, cmd, model, packed)
+        got, setup_ms, k_ms = timed_cm(torch, cmd.Launch, model, packed)
         for g, blk, p in zip(got, blocks, pays):
             with native.NativeStream(blk) as s:
                 host = b"".join(seg.data for seg in s.read_block())
@@ -313,6 +402,69 @@ def check_cm(torch, np, dev, seed: int) -> dict:
     return {"name": "cm_decode", "route": "cuda",
             "source": "zpaqfranz_tpu_torch/csrc/cm_decode.cu",
             "replaces": "zpaqfranz_tpu/ops/codec_arena.py:830",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_cm_encode(torch, np, dev, seed: int) -> dict:
+    """Hold the CM encode kernel against its plain version and the native
+    engine's coded segments; time it on the -m4 native-check launch."""
+    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+
+    rng = np.random.default_rng(seed)
+    models = cm_models()
+    err = 0
+    plain_ms = None
+    # kernel vs plain, 4 short lanes of mixed lengths per model
+    for name in ("3", "4.0", "5.0", "all-components", "4", "5"):
+        model = models[name]
+        pays = lane_payloads(np, rng, CM_PLAIN_SIZES)
+        packed = cme.pack_payloads([selector(model) + p for p in pays], dev)
+        a, setup_ms, k_ms = timed_cm(torch, cme.Launch, model, packed)
+        t0 = time.perf_counter()
+        plain = cme.cm_encode_plain(model, *packed)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        b = cmd.lanes_to_bytes(*plain)
+        err = max(err, byte_err(np, a, b))
+        check(a == b, f"CM encode kernel differs from its plain version "
+              f"({name})")
+        check(a == [coded_stream(model, p)[:-6] for p in pays],
+              f"CM encode kernel differs from the native engine ({name})")
+        log(f"cm_encode vs plain [{name}]: {len(pays)} lanes "
+            f"{sum(map(len, pays))} bytes -> {sum(map(len, a))} coded, "
+            f"n={model.n}: state set-up {setup_ms:.1f} ms, kernel launch "
+            f"{k_ms:.3f} ms, plain {p_ms:.0f} ms, identical to plain and "
+            f"native")
+        if name == "4":
+            plain_ms = p_ms
+    # kernel vs the native engine, longer lanes at the main path's widths;
+    # the -m4 launch gives the kernel's time and bound
+    timing = None
+    for name, sizes in CM_NATIVE_LANES:
+        model = models[name]
+        pays = [selector(model) + p for p in lane_payloads(np, rng, sizes)]
+        packed = cme.pack_payloads(pays, dev)
+        got, setup_ms, k_ms = timed_cm(torch, cme.Launch, model, packed)
+        want = [coded_stream(model, p[len(selector(model)):])[:-6]
+                for p in pays]
+        check(got == want,
+              f"CM encode kernel differs from the native engine ({name})")
+        in_bytes = sum(map(len, pays))
+        log(f"cm_encode vs native [{name}]: {len(pays)} lanes {in_bytes} "
+            f"bytes -> {sum(map(len, got))} coded, n={model.n}: state set-up "
+            f"{setup_ms:.1f} ms, kernel launch {k_ms:.1f} ms "
+            f"({max(map(len, pays)) / k_ms:.2f} KB/s for the longest lane), "
+            f"identical")
+        if name == "4":
+            timing = (model, in_bytes, sum(map(len, got)), k_ms)
+    model, in_bytes, out_bytes, ms = timing
+    b_ms, b_by = bound(in_bytes + out_bytes + 4 * cmd.lut("cpu").numel()
+                       + cm_touch_bytes(model, in_bytes),
+                       8 * in_bytes * model.n * CM_OPS_PER_COMPONENT_BIT)
+    return {"name": "cm_encode", "route": "cuda",
+            "source": "zpaqfranz_tpu_torch/csrc/cm_encode.cu",
+            "replaces": "zpaqfranz_tpu/ops/codec_arena.py:915",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -362,13 +514,24 @@ def tree_bytes(root: pathlib.Path) -> dict:
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
+def in_dir(path: pathlib.Path, fn):
+    """``fn()`` run with ``path`` as the working directory."""
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn()
+    finally:
+        os.chdir(cwd)
+
+
 def main_path(torch, np, dev, level: str, nbytes: int, seed: int,
               damage: bool) -> dict:
+    from zpaqfranz_tpu_torch.cli import main as cli_main
     from zpaqfranz_tpu_torch.jidac.add import add
     from zpaqfranz_tpu_torch.jidac.extract import (ExtractError, extract,
                                                    verify_archive)
     from zpaqfranz_tpu_torch.jidac.index import read_archive
-    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, sha1
+    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
     from zpaqfranz_tpu_torch.parallel.engine import parse_block_payload
 
     name = f"c{level}"
@@ -377,23 +540,49 @@ def main_path(torch, np, dev, level: str, nbytes: int, seed: int,
     want = tree_bytes(src)
     total = sum(map(len, want.values()))
     arc = WORK / f"{name}.zpaq"
-    cwd = os.getcwd()
-    os.chdir(WORK)
-    try:
+    host_arc = WORK / f"{name}-host.zpaq"
+    date = 20260102030405
+
+    def timed_add(path, **kw) -> float:
         t0 = time.perf_counter()
-        add(str(arc), [name], method=level)
-        t_add = time.perf_counter() - t0
-    finally:
-        os.chdir(cwd)
+        in_dir(WORK, lambda: add(str(path), [name], method=level, date=date,
+                                 **kw))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    enc0 = cme.launches
+    t_add = timed_add(arc, device=dev)
+    enc_launches = cme.launches - enc0
+    t_host = timed_add(host_arc, use_device=False)
     data = arc.read_bytes()
+    check(data == host_arc.read_bytes(),
+          f"-m{level}: the card's add differs from the host engine's")
     jd = read_archive(data)
     cm_blocks = [b for b in jd.block if parse_block_payload(
         data[b.offset:b.offset + b.bsize], 0)[0].n > 0]
     modeled = len(cm_blocks)
     cm_bytes = sum(b.usize for b in cm_blocks)
-    log(f"-m{level}: add {total} bytes in {t_add:.2f} s "
-        f"({total / t_add / 1e6:.2f} MB/s) -> {len(data)} bytes, "
-        f"{len(jd.block)} blocks ({modeled} modeled)")
+    check(1 <= enc_launches <= modeled,
+          f"-m{level}: {enc_launches} encode launches for {modeled} lanes")
+    log(f"-m{level}: add {total} bytes on the card in {t_add:.2f} s "
+        f"({total / t_add / 1e6:.3f} MB/s), on the host engine in "
+        f"{t_host:.2f} s ({total / t_host / 1e6:.3f} MB/s): identical "
+        f"archives of {len(data)} bytes, {len(jd.block)} blocks; {modeled} "
+        f"CM lanes of {cm_bytes} modeled bytes in {enc_launches} encode "
+        f"launches ({modeled / enc_launches:.1f} lanes/launch, "
+        f"{cm_bytes / modeled / t_add / 1e3:.2f} KB/s per encode lane)")
+
+    # sum -sha1 / -sha256 over the corpus: lanes of the hash kernels
+    for algo in ("sha1", "sha256"):
+        out_text = io.StringIO()
+        with contextlib.redirect_stdout(out_text):
+            rc = in_dir(WORK, lambda: cli_main(["sum", name, f"-{algo}"]))
+        lines = [f"{hashlib.new(algo, b).hexdigest().upper()}  {name}/{rel}"
+                 for rel, b in want.items()]
+        check(rc == 0 and out_text.getvalue().splitlines() == lines,
+              f"-m{level}: sum -{algo} differs from hashlib")
+    log(f"-m{level}: sum -sha1 and -sha256 of {len(want)} files equal "
+        f"hashlib's")
 
     out = WORK / f"out{level}"
     cm0 = cmd.launches
@@ -438,7 +627,9 @@ def main_path(torch, np, dev, level: str, nbytes: int, seed: int,
         torch.cuda.synchronize()
     shutil.rmtree(src)
     shutil.rmtree(out)
-    return {"level": level, "bytes": total, "x_s": t_x, "t_s": t_t,
+    return {"level": level, "bytes": total, "a_s": t_add, "a_host_s": t_host,
+            "x_s": t_x, "t_s": t_t,
+            "enc_KBps": cm_bytes / modeled / t_add / 1e3,
             "lane_KBps": cm_bytes / max(1, modeled) / t_x / 1e3}
 
 
@@ -454,7 +645,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from zpaqfranz_tpu_torch.device import resolve
-    from zpaqfranz_tpu_torch.ops import build, cm_decode as cmd, sha1
+    from zpaqfranz_tpu_torch.ops import build, cm_decode as cmd
+    from zpaqfranz_tpu_torch.ops import cm_encode as cme, sha1, sha256
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -468,30 +660,41 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    kernels = [check_sha1(torch, np, dev, seed=1)]
-    torch.cuda.synchronize()
-    kernels.append(check_cm(torch, np, dev, seed=2))
-    torch.cuda.synchronize()
+    kernels = []
+    for fn, seed in ((lambda s: check_hash(torch, np, dev, s, "sha1"), 1),
+                     (lambda s: check_hash(torch, np, dev, s, "sha256"), 6),
+                     (lambda s: check_cm(torch, np, dev, s), 2),
+                     (lambda s: check_cm_encode(torch, np, dev, s), 7)):
+        t0 = time.perf_counter()
+        kernels.append(fn(seed))
+        torch.cuda.synchronize()
+        log(f"  ({kernels[-1]['name']} checks took "
+            f"{time.perf_counter() - t0:.1f} s)")
 
     if WORK.exists():
         shutil.rmtree(WORK)
     WORK.mkdir(parents=True)
-    sha1.launches = 0
-    cmd.launches = 0
+    modules = {"sha1_lanes": sha1, "sha256_lanes": sha256, "cm_decode": cmd,
+               "cm_encode": cme}
+    for mod in modules.values():
+        mod.launches = 0
     try:
         runs = [main_path(torch, np, dev, "4", M4_BYTES, 4, damage=False),
                 main_path(torch, np, dev, "3", M3_BYTES, 3, damage=True),
                 main_path(torch, np, dev, "5", M5_BYTES, 5, damage=False)]
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    counts = {"sha1_lanes": sha1.launches, "cm_decode": cmd.launches}
+    counts = {name: mod.launches for name, mod in modules.items()}
     log(f"main path launches: {counts}")
     for k in kernels:
         k["launches"] = counts[k["name"]]
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     for r in runs:
-        log(f"-m{r['level']}: {r['bytes']} bytes, x {r['x_s']:.2f} s "
-            f"({r['lane_KBps']:.2f} KB/s per CM lane), t {r['t_s']:.2f} s")
+        log(f"-m{r['level']}: {r['bytes']} bytes, a {r['a_s']:.2f} s on the "
+            f"card ({r['enc_KBps']:.2f} KB/s per encode lane), "
+            f"{r['a_host_s']:.2f} s on the host engine; x {r['x_s']:.2f} s "
+            f"({r['lane_KBps']:.2f} KB/s per decode lane), t {r['t_s']:.2f} s")
+    log(f"smoke took {time.perf_counter() - T0:.1f} s")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

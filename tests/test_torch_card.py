@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-slice (extract and verify) on the card. Every test here needs a CUDA card
-and skips without one. This file imports no JAX, so it also runs where the
+slices (add, extract and verify) on the card. Every test here needs a CUDA
+card and skips without one. This file imports no JAX, so it also runs where the
 reference's JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
@@ -23,9 +23,11 @@ from zpaqfranz_tpu.zpaql.compiler import compile_config as ref_compile
 
 from chip_smoke import ALL_COMPONENTS_CFG
 from zpaqfranz_tpu_torch import convert
+from zpaqfranz_tpu_torch.jidac.add import add
 from zpaqfranz_tpu_torch.jidac.extract import extract, verify_archive
 from zpaqfranz_tpu_torch.jidac.index import read_archive
-from zpaqfranz_tpu_torch.ops import cm_decode as cmd, sha1
+from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+from zpaqfranz_tpu_torch.ops import sha1, sha256
 from zpaqfranz_tpu_torch.parallel.engine import parse_block_payload
 
 pytestmark = pytest.mark.cuda
@@ -53,6 +55,28 @@ def test_sha1_kernel_matches_plain(card):
     assert torch.equal(got.cpu().view(torch.int32),
                        sha1.sha1_plain(data, off, ln).cpu().view(torch.int32))
     assert sha1.to_digests(got) == [hashlib.sha1(c).digest() for c in chunks]
+
+
+def test_sha256_kernel_matches_plain(card):
+    rng = np.random.default_rng(8)
+    chunks = [b"", b"abc", b"a" * 55, b"a" * 56, b"a" * 63, b"a" * 64,
+              b"x" * 119, b"x" * 120] + [
+        rng.integers(0, 256, int(k), dtype=np.uint8).tobytes()
+        for k in rng.integers(0, 5000, 200)]
+    data, off, ln = sha1.pack_messages(chunks, card)
+    before = sha256.launches
+    got = sha256.sha256_lanes(data, off, ln)
+    torch.cuda.synchronize()
+    assert sha256.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32),
+                       sha256.sha256_plain(data, off, ln).cpu().view(
+                           torch.int32))
+    assert sha1.to_digests(got) == [hashlib.sha256(c).digest()
+                                    for c in chunks]
+    # lanes at odd offsets of one buffer
+    got = sha256.sha256_lanes(data, off + 1, (ln - 1).clamp(min=0))
+    assert sha1.to_digests(got) == [hashlib.sha256(c[1:]).digest()
+                                    for c in chunks]
 
 
 @pytest.mark.parametrize("method", ["3", "4.0", "5.0", "cfg"])
@@ -131,6 +155,27 @@ def test_cm_kernel_runs_long_hcomp_loops(card):
     assert cmd.lanes_to_bytes(*cmd.cm_decode_plain(model, *short)) == got[:3]
 
 
+@pytest.mark.parametrize("method", ["3", "4", "5"])
+def test_cm_encode_kernel_matches_plain_and_native(card, method):
+    """-m3, and -m4 / -m5 at their 16 MiB-block widths: the kernel's coded
+    lanes equal the plain version's and the native engine's segments."""
+    ref, _ = ref_make_model(method)
+    model = convert.model_from_reference_header(ref.header_bytes())
+    blob = ref.pcomp_bytes()
+    prefix = (b"\x01" + blob) if blob else b"\x00"
+    rng = np.random.default_rng(6)
+    raws = [b"the cat sat on the mat " * (k // 23 + 1)
+            + rng.integers(0, 256, k // 4, dtype=np.uint8).tobytes()
+            for k in (0, 40, 90, 150)]
+    packed = cme.pack_payloads([prefix + r for r in raws], card)
+    before = cme.launches
+    got = cmd.lanes_to_bytes(*cme.cm_encode(model, *packed))
+    torch.cuda.synchronize()
+    assert cme.launches == before + 1
+    assert got == [c[:-6] for c in _coded(ref, raws)]
+    assert got == cmd.lanes_to_bytes(*cme.cm_encode_plain(model, *packed))
+
+
 def test_cm_kernel_fails_a_runaway_hcomp(card):
     # coded with a halting program: the first byte decodes alike, then the
     # runaway program runs into the step limit and the lane fails
@@ -139,6 +184,50 @@ def test_cm_kernel_fails_a_runaway_hcomp(card):
         ref_compile(RUNAWAY_CFG)[0].header_bytes())
     with pytest.raises(cmd.CMDecodeError, match="HCOMP program faulted"):
         cmd.cm_decode(runaway, *cmd.pack_streams(stream, [64], card))
+
+
+def test_cm_encode_kernel_runs_long_hcomp_loops(card):
+    ref = ref_compile(LOOP_CFG)[0]
+    model = convert.model_from_reference_header(ref.header_bytes())
+    rng = np.random.default_rng(12)
+    raws = [b"a", b"loop", b"\xff\x00\x80zpaq!",
+            rng.integers(0, 256, 1000, dtype=np.uint8).tobytes()]
+    packed = cme.pack_payloads([b"\x00" + r for r in raws], card)
+    got = cmd.lanes_to_bytes(*cme.cm_encode(model, *packed))
+    assert got == [c[:-6] for c in _coded(ref, raws)]
+    short = cme.pack_payloads([b"\x00" + r for r in raws[:3]], card)
+    assert cmd.lanes_to_bytes(*cme.cm_encode_plain(model, *short)) == got[:3]
+    # the runaway program runs into the step limit at the first byte
+    runaway = convert.model_from_reference_header(
+        ref_compile(RUNAWAY_CFG)[0].header_bytes())
+    with pytest.raises(cme.CMEncodeError, match="HCOMP program faulted"):
+        cme.cm_encode(runaway, *cme.pack_payloads([b"\x00ab"], card))
+
+
+@pytest.mark.parametrize("method", ["3", "4.0"])
+def test_device_add_writes_host_bytes(card, tmp_path, monkeypatch, method):
+    """An add on the card writes the host engine's archive bytes, and the
+    archive restores and verifies on the card."""
+    src = tmp_path / "src"
+    (src / "sub").mkdir(parents=True)
+    (src / "a.txt").write_bytes(b"hello world " * 400)
+    (src / "b.bin").write_bytes(bytes(range(256)) * 40)
+    (src / "sub" / "c.txt").write_bytes(b"fox " * 800)
+    monkeypatch.chdir(tmp_path)
+    add(str(tmp_path / "h.zpaq"), ["src"], method=method, date=DATE,
+        use_device=False)
+    before = cme.launches
+    add(str(tmp_path / "d.zpaq"), ["src"], method=method, date=DATE)
+    assert cme.launches == before + 1
+    data = (tmp_path / "d.zpaq").read_bytes()
+    assert data == (tmp_path / "h.zpaq").read_bytes()
+    jd = read_archive(data)
+    extract(data, jd, str(tmp_path / "out"))
+    for p in src.rglob("*"):
+        if p.is_file():
+            rel = p.relative_to(tmp_path)
+            assert (tmp_path / "out" / rel).read_bytes() == p.read_bytes()
+    assert verify_archive(data, jd)[0] == len(jd.block)
 
 
 @pytest.mark.parametrize("method", ["0", "3", "4.0"])

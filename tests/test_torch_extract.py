@@ -1,11 +1,15 @@
 """The port's archive path against the reference package: archives written
 by the reference ``add`` restore through the port's ``extract`` (lanes on
 the CPU through the plain versions, and the host engine), ``verify_archive``
-counts agree, damage raises, and the port's host ``add`` writes the
-reference's bytes."""
+counts agree, damage raises, and the port's ``add`` (encode lanes on the CPU
+through the plain version, and the host engine) writes the reference's
+bytes."""
 
+import hashlib
 import pathlib
+import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,7 +24,7 @@ from zpaqfranz_tpu_torch.jidac.add import add
 from zpaqfranz_tpu_torch.jidac.extract import (ExtractError, extract,
                                                verify_archive)
 from zpaqfranz_tpu_torch.jidac.index import read_archive
-from zpaqfranz_tpu_torch.ops import cm_decode as cmd, sha1
+from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme, sha1
 
 DATE = 20260102030405
 
@@ -71,22 +75,48 @@ def test_reference_archive_restores_through_port(tree, tmp_path, method):
 
 
 
-
 def test_port_host_add_writes_reference_bytes(tree, tmp_path):
     for method in ("1", "3", "4.0"):
         ref_add(str(tmp_path / f"r{method}.zpaq"), ["src"], method=method,
                 date=DATE)
         add(str(tmp_path / f"p{method}.zpaq"), ["src"], method=method,
-            date=DATE)
+            date=DATE, use_device=False)
         assert (tmp_path / f"p{method}.zpaq").read_bytes() == \
             (tmp_path / f"r{method}.zpaq").read_bytes(), method
 
 
-def test_device_add_is_refused(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="encode"):
-        add(str(tmp_path / "d.zpaq"), ["src"], method="4.0",
+@pytest.mark.parametrize("method", ["3", "4.0"])
+def test_device_add_writes_reference_bytes(tree, tmp_path, capsys, method):
+    """Encode lanes on the CPU (the plain version) write the bytes of the
+    reference's host add and of its device add (JAX on the CPU)."""
+    before = cme.launches
+    add(str(tmp_path / "p.zpaq"), ["src"], method=method, date=DATE,
+        device="cpu")
+    assert cme.launches == before          # no kernel: the plain version
+    ref_add(str(tmp_path / "h.zpaq"), ["src"], method=method, date=DATE,
+            use_device=False)
+    ref_add(str(tmp_path / "d.zpaq"), ["src"], method=method, date=DATE,
             use_device=True)
-    assert not (tmp_path / "d.zpaq").exists()
+    # the reference's device add did not fall back to its host engine
+    assert "falling back" not in capsys.readouterr().err
+    data = (tmp_path / "p.zpaq").read_bytes()
+    assert data == (tmp_path / "h.zpaq").read_bytes()
+    assert data == (tmp_path / "d.zpaq").read_bytes()
+    extract(data, read_archive(data), str(tmp_path / "out"),
+            use_device=False)
+    assert _files(tmp_path / "out" / "src") == _files(tmp_path / "src")
+
+
+def test_device_add_keeps_the_resume_journal(tree, tmp_path):
+    """-resume on the encode lanes: blocks go through the journal, the
+    archive bytes stay the host's and the journal is removed."""
+    add(str(tmp_path / "h.zpaq"), ["src"], method="3", date=DATE,
+        use_device=False)
+    add(str(tmp_path / "p.zpaq"), ["src"], method="3", date=DATE,
+        device="cpu", resume=True)
+    assert (tmp_path / "p.zpaq").read_bytes() == \
+        (tmp_path / "h.zpaq").read_bytes()
+    assert not (tmp_path / "p.zpaq.resume").exists()
 
 
 @pytest.mark.parametrize("method,where", [("0", 200), ("3", -30)])
@@ -124,13 +154,29 @@ def test_no_card_raises_instead_of_falling_back(tree, tmp_path):
     assert _files(tmp_path / "cli" / "src") == _files(tmp_path / "src")
 
 
+def test_modeled_add_without_card_raises(tree, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(NoDeviceError):
+        add(str(tmp_path / "d.zpaq"), ["src"], method="4.0")
+    assert not list(tmp_path.glob("d.zpaq*"))
+    # store-coded methods never reach the encode kernel
+    add(str(tmp_path / "s.zpaq"), ["src"], method="1", date=DATE)
+    ref_add(str(tmp_path / "r.zpaq"), ["src"], method="1", date=DATE)
+    assert (tmp_path / "s.zpaq").read_bytes() == \
+        (tmp_path / "r.zpaq").read_bytes()
+
+
 def test_cli_add_and_list(tree, tmp_path, capsys):
-    assert cli_main(["a", "c", "src", "-m3"]) == 0
+    assert cli_main(["a", "c", "src", "-m3", "-notpu"]) == 0
     assert cli_main(["l", "c"]) == 0
     assert "src/sub/c.txt" in capsys.readouterr().out
-    # device encode is not ported: -tpu on add is refused, nothing written
-    assert cli_main(["a", "d", "src", "-m3", "-tpu"]) == 2
-    assert not (tmp_path / "d.zpaq").exists()
+    if not torch.cuda.is_available():
+        # a modeled add takes the card unless -notpu asks for the host:
+        # without one it fails and writes nothing
+        assert cli_main(["a", "d", "src", "-m3"]) == 2
+        assert cli_main(["a", "d", "src", "-m3", "-tpu"]) == 2
+        assert not list(tmp_path.glob("d.zpaq*"))
 
 
 def test_mixed_models_group_into_lanes(tree, tmp_path):
@@ -157,10 +203,49 @@ def test_launch_sizing_against_free_card_memory(monkeypatch):
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda dev=None: (free["bytes"], 1 << 40))
     card = torch.device("cuda", 0)
-    streams, caps = [b"x" * 1000] * 50, [3000] * 50
-    assert engine.lanes_per_launch(model, streams, caps, card) == 8
+    assert engine.lanes_per_launch(model, 4000, card) == 8
     free["bytes"] = per_lane
     with pytest.raises(MemoryError):
-        engine.lanes_per_launch(model, streams, caps, card)
-    assert engine.lanes_per_launch(model, streams, caps,
-                                   torch.device("cpu")) == 50
+        engine.lanes_per_launch(model, 4000, card)
+    assert engine.lanes_per_launch(model, 4000,
+                                   torch.device("cpu")) == sys.maxsize
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_encode_launches_fill_mid_stream(tmp_path, monkeypatch, lanes):
+    """Launches of ``lanes`` lanes go out as jobs arrive: coded jobs, a
+    store-chosen job and a journaled one between them come out in job order,
+    each the host engine's block, and the journal records every new block."""
+    from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.jidac import add as port_add
+    from zpaqfranz_tpu_torch.parallel import engine
+
+    method = "x0,1,4,0,3,16ci1"        # LZ77 + CM: adaptive store can fire
+    model, pre = make_model(method)
+    rng = np.random.default_rng(11)
+    raws = [b"hello world " * 6, rng.integers(0, 256, 150, np.uint8).tobytes(),
+            b"fox " * 20, b"abcabd " * 10, b"zpaq lane " * 7]
+    jobs = [port_add._Job(first_frag=1 + 10 * i,
+                          frags=[(hashlib.sha1(r).digest(), len(r))],
+                          data=bytearray(r)) for i, r in enumerate(raws)]
+    host = [port_add._compress_d_block(model, pre, j, DATE) for j in jobs]
+    assert engine.prepare_payload(pre, raws[1])[1]       # store-chosen
+    path = tmp_path / "a.zpaq.resume"
+    journal = port_add.ResumeJournal.load_or_create(path, DATE, method)
+    journal.cache[journal.identity(jobs[2])] = host[2]   # from a prior run
+
+    batches = []
+    encode = engine.encode_streams
+    monkeypatch.setattr(engine, "lanes_per_launch", lambda *a: lanes)
+    monkeypatch.setattr(engine, "encode_streams", lambda m, p, d: (
+        batches.append(len(p)), encode(m, p, d))[1])
+    got = list(engine.encode_jidac_blocks(
+        model, pre, iter(jobs), DATE, port_add._jdc_name,
+        torch.device("cpu"), 1 << 20, journal=journal))
+    assert got == host
+    assert batches == ([1, 1, 1] if lanes == 1 else [2, 1])
+    journal._f.close()
+    again = port_add.ResumeJournal.load_or_create(path, DATE, method)
+    assert again.cache == {again.identity(jobs[i]): host[i]
+                           for i in (0, 1, 3, 4)}
+    again.done()

@@ -41,8 +41,8 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
     res = _run(["-c", PROBE], ROOT)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "zpaqfranz_tpu_torch.ops.cm_decode" in out["imported"]
-    assert "zpaqfranz_tpu_torch.ops.sha1" in out["imported"]
+    for mod in ("cm_model", "cm_decode", "cm_encode", "sha1", "sha256"):
+        assert f"zpaqfranz_tpu_torch.ops.{mod}" in out["imported"]
     assert out["bad"] == []
 
 

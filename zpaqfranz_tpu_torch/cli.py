@@ -4,18 +4,20 @@ Positional grammar matching the reference (man/zpaqfranz.pod:75-131):
 
     python -m zpaqfranz_tpu_torch.cli <command> <archive>[.zpaq] [files...] [-switches]
 
-Commands: a add, x e extract, l ls list, t test.
+Commands: a add, x e extract, l ls list, t test, sum hash.
 
 Switches: -mN method, -to DIR, -until N|date, -fragment N, -threads N,
--key PW, -only PAT, -not PAT, -summary, -test, -tpu / -notpu.
-``x`` and ``t`` run on the CUDA card unless ``-notpu`` asks for the host
-engine; ``a`` encodes on the host (device encode is not ported yet, so
-``-tpu`` on ``a`` is refused).
+-key PW, -only PAT, -not PAT, -summary, -test, -tpu / -notpu, and for
+``sum`` the hash name (-sha1 default, -sha256, -md5, -xxhash64, ...).
+``a -m3..-m5``, ``x``, ``t`` and ``sum -sha1/-sha256`` run on the CUDA card
+unless ``-notpu`` asks for the host engine (``-tpu`` is accepted and
+changes nothing).
 Exit codes follow the reference contract: 0 ok, 1 warnings, 2 errors.
 """
 
 from __future__ import annotations
 
+import pathlib
 import sys
 import time
 from typing import Dict, List, Optional, Sequence
@@ -108,7 +110,7 @@ def cmd_add(archive, files, sw) -> int:
     nfiles, nfrags, nbytes = add(archive, files, method=method,
                                  fragment_bits=frag,
                                  threads=int(sw.get("threads", ["0"])[0]),
-                                 key=_key(sw), use_device="tpu" in sw,
+                                 key=_key(sw), use_device=_use_device(sw),
                                  index_path=sw.get("index", [None])[0],
                                  chunk=chunk, notrim="notrim" in sw,
                                  tmp="tmp" in sw,
@@ -232,12 +234,119 @@ def cmd_test(archive, files, sw) -> int:
     return warn
 
 
+def _hash_one(algo: str, data: bytes) -> str:
+    """Hasher zoo dispatch (reference README.md:96-105 enumerates the set).
+    All digests native C++ (hashes.cpp)."""
+    from . import native
+    if algo == "crc32":
+        return f"{native.crc32(data):08X}"
+    if algo in ("xxhash64", "xxhash", "xx64"):
+        return f"{native.xxh64(data):016X}"
+    if algo in ("xxh3", "xxh3128", "xx3"):
+        return native.xxh3_128(data).hex().upper()
+    if algo == "xxh3_64":
+        return f"{native.xxh3_64(data):016X}"
+    if algo == "wyhash":
+        return f"{native.wyhash(data):016X}"
+    if algo in ("highway64", "highway"):
+        return f"{native.highway64(data):016X}"
+    if algo == "highway128":
+        return native.highway128(data).hex().upper()
+    if algo == "highway256":
+        return native.highway256(data).hex().upper()
+    if algo in ("zeta", "zetaenc"):
+        # zetaenc hashes the on-disk (possibly encrypted) bytes; for a
+        # plain file the two coincide (reference CHANGELOG.md:444)
+        return f"{native.zeta(data):016X}"
+    fn = {"sha1": native.sha1, "sha256": native.sha256,
+          "sha3": native.sha3_256, "md5": native.md5,
+          "blake3": native.blake3, "whirlpool": native.whirlpool,
+          "nilsimsa": native.nilsimsa}[algo]
+    return fn(data).hex().upper()
+
+
+SUM_ALGOS = ("sha1", "sha256", "sha3", "md5", "blake3", "whirlpool",
+             "crc32", "xxhash64", "xxhash", "xx64", "xxh3", "xxh3_64",
+             "wyhash", "highway64", "highway", "highway128", "highway256",
+             "nilsimsa", "zeta", "zetaenc")
+
+#: bytes of file data hashed in one launch of a lane kernel
+SUM_BATCH_BYTES = 1 << 30
+
+
+def sum_lines(paths: Sequence, algo: str, use_device: bool = True,
+              device=None) -> List[str]:
+    """``DIGEST  path`` lines of ``sum`` for ``paths``. SHA-1 and SHA-256
+    hash every file as one lane of the SHA-1 / SHA-256 lane kernel on
+    ``device`` (None = the CUDA card, which must be present; "cpu" = the
+    plain PyTorch versions), in launches of up to ``SUM_BATCH_BYTES``;
+    ``use_device=False`` and the other algorithms use the native hashers."""
+    if not (use_device and algo in ("sha1", "sha256")):
+        return [f"{_hash_one(algo, pathlib.Path(p).read_bytes())}  {p}"
+                for p in paths]
+    from .device import resolve
+    from .ops import sha1, sha256
+    dev = resolve(device)
+    lanes = sha1.sha1_lanes if algo == "sha1" else sha256.sha256_lanes
+    lines: List[str] = []
+    batch: List = []
+    datas: List[bytes] = []
+    size = 0
+
+    def flush() -> None:
+        digests = sha1.to_digests(lanes(*sha1.pack_messages(datas, dev)))
+        lines.extend(f"{d.hex().upper()}  {p}" for p, d in zip(batch, digests))
+        batch.clear()
+        datas.clear()
+
+    for p in paths:
+        data = pathlib.Path(p).read_bytes()
+        if datas and size + len(data) > SUM_BATCH_BYTES:
+            flush()
+            size = 0
+        batch.append(p)
+        datas.append(data)
+        size += len(data)
+    if batch:
+        flush()
+    return lines
+
+
+def cmd_sum(archive, files, sw) -> int:
+    algo = "sha1"
+    for k in SUM_ALGOS:
+        if k in sw:
+            algo = k
+            break
+    targets = [archive] + list(files) if archive else files
+    paths = []
+    for t in sorted(targets):
+        p = pathlib.Path(t)
+        if p.is_dir():
+            paths += [s for s in sorted(p.rglob("*")) if s.is_file()]
+        elif p.is_file():
+            paths.append(p)
+    if algo in ("zeta", "zetaenc"):
+        # The reference's ZETA construction lives only in the missing
+        # zpaqfranz.cpp; ours is a documented reconstruction, so digests
+        # are NOT interoperable with zpaqfranz's own zeta output.
+        print("note: zeta digests are a local dialect "
+              "(not bit-compatible with zpaqfranz)")
+    for line in sum_lines(paths, algo, use_device=_use_device(sw)):
+        print(line)
+    return 0
+
+
 COMMANDS = {
     "a": cmd_add, "add": cmd_add,
     "x": cmd_extract, "e": cmd_extract, "extract": cmd_extract,
     "l": cmd_list, "ls": cmd_list, "list": cmd_list,
     "t": cmd_test, "test": cmd_test,
+    "sum": cmd_sum, "hash": cmd_sum,
 }
+
+# commands whose first positional is a plain file/dir path, not an archive
+PLAIN_PATH_COMMANDS = {"sum", "hash"}
 
 
 class _Progress:
@@ -296,7 +405,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"unknown command {cmd!r}; commands: {' '.join(sorted(set(COMMANDS)))}",
               file=sys.stderr)
         return 2
-    if archive is None:
+    plain = cmd in PLAIN_PATH_COMMANDS
+    if archive is None and not plain:
         print("missing archive name", file=sys.stderr)
         return 2
     # -out FILE redirects stdout; -appendoutput appends
@@ -309,7 +419,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                           "a" if "appendoutput" in sw else "w")
     t0 = time.time()
     try:
-        rc = fn(_archive_path(archive), files, sw)
+        rc = fn(archive if plain else _archive_path(archive), files, sw)
         if "stat" in sw:
             # greppable stats lines (reference |STAT|, CHANGELOG.md:83-84)
             print(f"|STAT| cmd={cmd} rc={rc} seconds={time.time() - t0:.3f}")

@@ -10,8 +10,10 @@
 // FIPS 180-4 padding (0x80, zeros, 64-bit big-endian bit length) of its last
 // one or two blocks in registers.
 //
-// Bound: about 1,000 integer operations per 64-byte block against the card's
-// INT32 rate, and each input byte read once against 3.35 TB/s. Each thread
+// Bound: 597 integer instructions per 64-byte block (80 rounds of 5, 64
+// schedule words of 3, 5 final adds; 3-input logic is one LOP3 and 3-input
+// adds one IADD3, as chip_smoke.py counts them) against the card's INT32
+// rate, and each input byte read once against 3.35 TB/s. Each thread
 // reads its own message, so loads do not coalesce across a warp; lanes are
 // sorted longest first (the wrapper passes the order) so a warp's threads
 // run similar block counts.

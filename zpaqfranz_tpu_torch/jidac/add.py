@@ -8,9 +8,11 @@ call stack in SURVEY.md section 3.1):
   (native rolling hash) -> SHA-1 dedup -> pack new fragments into d blocks
   -> compress blocks -> append  c + d... + h... + i...  as one transaction.
 
-Block compression runs through the native engine on host threads (device
-encode lanes are a later slice of the port). Every emitted block is a
-standard ZPAQ block, so reference zpaqfranz can list/extract our archives.
+Modeled d blocks (-m3..-m5) are coded as lanes of the CUDA CM encode kernel
+(parallel/engine.py, ops/cm_encode.py) unless the caller asks for the host
+engine, which compresses blocks through the native engine on host threads;
+both write the same bytes. Every emitted block is a standard ZPAQ block, so
+reference zpaqfranz can list/extract our archives.
 
 The pipeline is factored into stages (open_for_append / diff_index /
 FragmentPlanner / build_transaction / commit_transaction).
@@ -331,6 +333,14 @@ class FragmentPlanner:
 
     def finish(self) -> Optional[_Job]:
         return self.cur if self.cur.frags else None
+
+
+def max_job_bytes(block_cap: int, fragment_bits: int) -> int:
+    """Most raw bytes a ``FragmentPlanner`` job can hold: it closes once it
+    reaches ``block_cap``, so it ends within one fragment past the cap, and
+    the native CDC cuts a fragment at 8x its mean (2^fragment_bits, at
+    least 2^6) plus 4 KiB."""
+    return block_cap - 1 + (8 << max(fragment_bits, 6)) + 4096
 
 
 def job_bytes(job: _Job) -> bytes:
@@ -810,7 +820,8 @@ def add(archive: str, files: Sequence[str], method: str = "1",
         fragment_bits: int = 16, threads: int = 0,
         date: Optional[int] = None, summary: bool = False,
         key: Optional[str] = None,
-        use_device: bool = False,
+        use_device: bool = True,
+        device=None,
         index_path: Optional[str] = None,
         chunk: int = 0,
         notrim: bool = False,
@@ -841,19 +852,23 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     resume: journal completed d blocks to <archive>.resume so an
     interrupted add continues where it stopped (block-granular encode
     resume; the archive is untouched until the transaction commits).
-    use_device: device encode (CM encode lanes on the card) is not ported
-    yet; True raises ``NotImplementedError``. The host engine writes the
-    same archive bytes the device encoder will."""
-    if use_device:
-        raise NotImplementedError(
-            "device encode (the CM encode kernel) is the port's encode "
-            "slice and is not ported yet; add with use_device=False")
+    use_device: code modeled d blocks (-m3..-m5) as lanes of the CM encode
+    kernel on ``device`` (None = the CUDA card, which must be present;
+    "cpu" = the kernel's plain PyTorch version). False = the host engine's
+    thread pool. Both write the same archive bytes; store-coded methods
+    (-m0..-m2) and streaming-format adds always use the host engine."""
     ctx = open_for_append(archive, key=key, notrim=notrim,
                           index_path=index_path)
     jd = ctx.jd
 
     model, pre = make_model(method)   # raises for not-yet-supported methods
     block_cap = min(1 << pre.block_bits, 1 << 24)  # >= threads jobs in flight
+    streaming = method.lstrip().startswith("s")
+    if use_device and not streaming and model is not None and model.n > 0:
+        from ..device import resolve
+        device = resolve(device)      # no card: raise before writing
+    else:
+        device = None
 
     ext = scan_files(files)
     date = pick_date(jd, date)
@@ -868,7 +883,7 @@ def add(archive: str, files: Sequence[str], method: str = "1",
             journal.done()
         return 0, 0, 0
 
-    if method.lstrip().startswith("s"):
+    if streaming:
         # true streaming-format blocks (`a -m s...`): no dedup/journaling
         return add_streaming(ctx, model, pre, changed, ext, block_cap,
                              tmp=tmp, progress=progress)
@@ -935,25 +950,36 @@ def add(archive: str, files: Sequence[str], method: str = "1",
                               or block or len(d_futs) >= 2 * cx_threads):
                 spill.append(d_futs.popleft().result())
 
-        total_bytes = est_bytes
-        done_bytes = 0
-        with _fut.ThreadPoolExecutor(max_workers=hash_threads) as hx:
-            for name, (nbytes_f, sums, frags) in zip(
-                    changed, hx.map(_digest_file, changed)):
-                file_sums[name] = sums
-                done_bytes += nbytes_f
-                if progress is not None:
-                    progress(done_bytes, total_bytes)
-                for job in planner.add_file(name, frags, None):
-                    jobs.append(job)
-                    d_futs.append(cx.submit(_compress_job, job))
-                    drain(block=False)
-        tail = planner.finish()
-        if tail is not None:
-            jobs.append(tail)
-            d_futs.append(cx.submit(_compress_job, tail))
+        def planned_jobs():
+            # d-block jobs in order, each as soon as it fills
+            done_bytes = 0
+            with _fut.ThreadPoolExecutor(max_workers=hash_threads) as hx:
+                for name, (nbytes_f, sums, frags) in zip(
+                        changed, hx.map(_digest_file, changed)):
+                    file_sums[name] = sums
+                    done_bytes += nbytes_f
+                    if progress is not None:
+                        progress(done_bytes, est_bytes)
+                    for job in planner.add_file(name, frags, None):
+                        jobs.append(job)
+                        yield job
+            tail = planner.finish()
+            if tail is not None:
+                jobs.append(tail)
+                yield tail
 
-        drain(block=True)
+        if device is not None:
+            from ..parallel.engine import encode_jidac_blocks
+            for blk in encode_jidac_blocks(
+                    model, pre, planned_jobs(), date, _jdc_name, device,
+                    max_job_bytes(block_cap, fragment_bits), verify=verify,
+                    journal=journal):
+                spill.append(blk)
+        else:
+            for job in planned_jobs():
+                d_futs.append(cx.submit(_compress_job, job))
+                drain(block=False)
+            drain(block=True)
 
         pieces = stream_transaction(
             date, jobs, spill, changed, deleted, ext, file_sums,

@@ -3,9 +3,10 @@
 Each source under ``zpaqfranz_tpu_torch/csrc/`` is compiled by ``nvcc`` into
 its own shared library with a plain C interface, loaded with ``ctypes``.
 Libraries go to ``zpaqfranz_tpu_torch/build/`` (listed in ``.gitignore``),
-named by a hash of their source, so an edited source rebuilds and an
-unchanged one loads at once. Nothing is built at import time: a wrapper
-builds its kernel the first time it launches it.
+named by a hash of their source and the shared headers (``csrc/*.cuh``), so
+an edited source or header rebuilds and an unchanged one loads at once.
+Nothing is built at import time: a wrapper builds its kernel the first time
+it launches it.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 
 #: kernel name -> source file under csrc/
-SOURCES = {"sha1_lanes": "sha1_lanes.cu", "cm_decode": "cm_decode.cu"}
+SOURCES = {"sha1_lanes": "sha1_lanes.cu", "sha256_lanes": "sha256_lanes.cu",
+           "cm_decode": "cm_decode.cu", "cm_encode": "cm_encode.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -47,8 +49,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

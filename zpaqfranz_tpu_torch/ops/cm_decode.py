@@ -5,15 +5,11 @@ Replaces the TPU device program ``zpaqfranz_tpu/ops/codec_arena.py``
 (``ops/hcomp_fast.py`` / ``ops/vm_batched.py``). The kernel is
 ``csrc/cm_decode.cu``: one lane (one d block's coded segment) per thread,
 the whole segment in one launch, HCOMP through an in-kernel ZPAQL
-interpreter.
+interpreter. The model it runs (arena layout, predictor, update, HCOMP) is
+shared with the encoder: ``csrc/cm_model.cuh`` and ``ops/cm_model.py``.
 
-Both versions keep per-lane model state in the arena layout of
-``Layout`` (a copy of ``codec_arena._Layout``): a u8 arena of ICM/ISSE hash
-rows and MATCH history, and a u32 arena of counters, weights and MATCH
-pointers. The plain version batches lanes in ``int64`` tensors (CPU
-``uint32`` has no arithmetic), keeps the arenas as ``uint8`` / ``int32``
-tensors widened after each gather, loops over bytes and bits in Python and
-runs HCOMP per lane through the scalar ``zpaql.vm.VM``.
+The plain version is ``cm_model.PlainModel`` with libzpaq's range decoder,
+looping over bytes and bits in Python.
 
 ``cm_decode`` takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. A lane that fails (corrupt
@@ -26,17 +22,16 @@ difference recorded in ROADMAP.md, Queue 3).
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ..errors import ExtractError
-from ..models import tables as T
 from ..zpaql.header import Model
-from ..zpaql.vm import VM, ZPAQLRuntimeError
-from . import build
+from .cm_model import (_M32, ST_CORRUPT, ST_EOF, ST_OVERRUN, ST_ZPAQL,
+                       LaneLaunch, Layout, PlainModel, check_lanes,
+                       initial_lane_state, lane_bytes, lanes_to_bytes, lut,
+                       plain_result, raise_failed)
 from .sha1 import pack_messages
 
 __all__ = ["Layout", "Launch", "lut", "cm_decode", "cm_decode_plain",
@@ -46,169 +41,14 @@ __all__ = ["Layout", "Launch", "lut", "cm_decode", "cm_decode_plain",
 #: kernel launches made by ``cm_decode`` in this process
 launches = 0
 
-ST_OK, ST_OVERRUN, ST_CORRUPT, ST_EOF, ST_ZPAQL = range(5)
 _REASON = {ST_OVERRUN: "decoded past its output capacity",
            ST_CORRUPT: "coded stream is corrupt",
            ST_EOF: "coded stream ends early",
            ST_ZPAQL: "HCOMP program faulted"}
 
-_M32 = 0xFFFFFFFF
-_NPAR = 6
-
-# combined LUT: squash(4096) | stretch(32768) | sns(1024), as codec_arena
-SQ_OFF = 0
-STR_OFF = 4096
-SNS_OFF = 4096 + 32768
-_BIGLUT = np.concatenate([T.SQUASHT.astype(np.int32),
-                          T.STRETCHT.astype(np.int32),
-                          T.SNS.astype(np.int32)]).astype(np.int32)
-
 
 class CMDecodeError(ExtractError):
     """A lane's coded stream does not decode: the block is damaged."""
-
-
-def lut(device) -> torch.Tensor:
-    """The combined squash/stretch/SNS table as an int32 tensor."""
-    return torch.from_numpy(_BIGLUT).to(device)
-
-
-class Layout:
-    """Arena segment offsets of one model (``codec_arena._Layout``)."""
-
-    def __init__(self, model: Model):
-        self.comps = [tuple(c) for c in model.comps]
-        s8 = 0
-        s32 = 0
-        self.off8: Dict[int, int] = {}
-        self.off32: Dict[int, int] = {}
-        for i, cp in enumerate(self.comps):
-            t = cp[0]
-            if t == T.ICM:
-                self.off8[i] = s8
-                s8 += 64 << cp[1]
-                self.off32[i] = s32
-                s32 += 256
-            elif t == T.ISSE:
-                self.off8[i] = s8
-                s8 += 64 << cp[1]
-                self.off32[i] = s32
-                s32 += 512
-            elif t == T.MATCH:
-                self.off8[i] = s8
-                s8 += 1 << cp[2]
-                self.off32[i] = s32
-                s32 += 1 << cp[1]
-            elif t == T.CM:
-                self.off32[i] = s32
-                s32 += 1 << cp[1]
-            elif t == T.MIX:
-                self.off32[i] = s32
-                s32 += (1 << cp[1]) * cp[3]
-            elif t == T.MIX2:
-                self.off32[i] = s32
-                s32 += 1 << cp[1]
-            elif t == T.SSE:
-                self.off32[i] = s32
-                s32 += 32 << cp[1]
-        self.s8 = max(s8, 1)
-        self.s32 = max(s32, 1)
-
-    def init_rows(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Single-lane initial arena contents (u8 arena, u32 arena)."""
-        a8 = np.zeros(self.s8, np.uint8)
-        a32 = np.zeros(self.s32, np.uint32)
-        isse_wt = np.zeros(512, np.uint32)
-        isse_wt[0::2] = 1 << 15
-        w1 = np.clip(
-            T.STRETCHT[(T.CMINIT >> 8).astype(np.int64)].astype(np.int64)
-            * 1024, -(1 << 19), (1 << 19) - 1).astype(np.int32)
-        isse_wt[1::2] = w1.view(np.uint32)
-        for i, cp in enumerate(self.comps):
-            t = cp[0]
-            if t == T.CM:
-                a32[self.off32[i]: self.off32[i] + (1 << cp[1])] = 0x80000000
-            elif t == T.ICM:
-                a32[self.off32[i]: self.off32[i] + 256] = \
-                    T.CMINIT.astype(np.uint32)
-            elif t == T.ISSE:
-                a32[self.off32[i]: self.off32[i] + 512] = isse_wt
-            elif t == T.MATCH:
-                a8[self.off8[i]] = 1
-            elif t == T.MIX:
-                m = cp[3]
-                n = (1 << cp[1]) * m
-                a32[self.off32[i]: self.off32[i] + n] = \
-                    np.int32(65536 // m).view(np.uint32)
-            elif t == T.MIX2:
-                a32[self.off32[i]: self.off32[i] + (1 << cp[1])] = 32768
-            elif t == T.SSE:
-                base = np.array(
-                    [(np.uint32(T.SQUASHT[j * 64 - 992 + 2048]) << 17)
-                     | np.uint32(cp[3]) for j in range(32)], np.uint32)
-                n = 32 << cp[1]
-                a32[self.off32[i]: self.off32[i] + n] = np.tile(base, n // 32)
-        return a8, a32
-
-
-def initial_lane_state(model: Model, L: int, device
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                  torch.Tensor]:
-    """Fresh decoder state for ``L`` lanes on ``device``: the u8 arena
-    (L, s8) ``uint8``, the u32 arena (L, s32) as ``int32`` bit patterns,
-    HCOMP's H (L, 2^hh) ``int32`` and M (L, 2^hm) ``uint8``, all zero but
-    the arena rows of ``Layout.init_rows``."""
-    a8_row, a32_row = Layout(model).init_rows()
-    a8 = torch.from_numpy(a8_row).to(device).expand(L, -1).contiguous()
-    a32 = torch.from_numpy(a32_row.view(np.int32)).to(device).expand(
-        L, -1).contiguous()
-    hmem = torch.zeros((L, 1 << model.hh), dtype=torch.int32, device=device)
-    mmem = torch.zeros((L, 1 << model.hm), dtype=torch.uint8, device=device)
-    return a8, a32, hmem, mmem
-
-
-def lane_bytes(model: Model) -> int:
-    """Device bytes of one lane's model state (arenas, H and M)."""
-    lay = Layout(model)
-    return lay.s8 + 4 * lay.s32 + (4 << model.hh) + (1 << model.hm)
-
-
-def _check(model: Model, coded: torch.Tensor, in_off: torch.Tensor,
-           in_len: torch.Tensor, out_cap: torch.Tensor) -> None:
-    if model.n == 0:
-        raise ValueError("store-mode blocks have no model to decode")
-    if coded.dtype != torch.uint8 or coded.dim() != 1:
-        raise TypeError("coded must be a 1-D uint8 tensor")
-    for name, t in (("in_off", in_off), ("in_len", in_len),
-                    ("out_cap", out_cap)):
-        if t.dtype != torch.int64 or t.dim() != 1:
-            raise TypeError(f"{name} must be a 1-D int64 tensor")
-        if t.device != coded.device:
-            raise ValueError(f"{name} is on {t.device}, coded on "
-                             f"{coded.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not coded.is_contiguous():
-        raise ValueError("coded must be contiguous")
-    if not in_off.shape == in_len.shape == out_cap.shape:
-        raise ValueError("in_off, in_len and out_cap differ in shape")
-
-
-def _raise_failed(status: torch.Tensor) -> None:
-    bad = torch.nonzero(status).flatten().tolist()
-    if bad:
-        st = status.tolist()
-        raise CMDecodeError("; ".join(
-            f"lane {i}: {_REASON.get(st[i], f'status {st[i]}')}"
-            for i in bad[:4]) + (f" (+{len(bad) - 4} lanes)"
-                                 if len(bad) > 4 else ""))
-
-
-def _out_offsets(out_cap: torch.Tensor) -> torch.Tensor:
-    off = torch.zeros_like(out_cap)
-    if out_cap.numel() > 1:
-        off[1:] = torch.cumsum(out_cap, 0)[:-1]
-    return off
 
 
 def cm_decode(model: Model, coded: torch.Tensor, in_off: torch.Tensor,
@@ -220,166 +60,46 @@ def cm_decode(model: Model, coded: torch.Tensor, in_off: torch.Tensor,
     Returns ``(out, out_off, out_len)``: lane i's decoded bytes are
     ``out[out_off[i]:out_off[i] + out_len[i]]``, with at most
     ``out_cap[i]`` bytes per lane."""
-    _check(model, coded, in_off, in_len, out_cap)
+    check_lanes(model, coded, in_off, in_len, out_cap)
     if coded.device.type == "cpu":
         return cm_decode_plain(model, coded, in_off, in_len, out_cap)
     return Launch(model, coded, in_off, in_len, out_cap).run().result()
 
 
-class Launch:
-    """One launch of the kernel over every lane, prepared: inputs checked,
-    the model's tables and fresh lane state on the card, outputs allocated.
-    ``run()`` launches the kernel once; ``result()`` raises
-    ``CMDecodeError`` for a failed lane and returns ``(out, out_off,
-    out_len)``. ``cm_decode`` is ``Launch(...).run().result()``; the split
-    lets a caller time the launch apart from the state set-up."""
+class Launch(LaneLaunch):
+    """One prepared launch of the decode kernel (``cm_model.LaneLaunch``);
+    ``cm_decode`` is ``Launch(...).run().result()``."""
 
-    def __init__(self, model: Model, coded: torch.Tensor,
-                 in_off: torch.Tensor, in_len: torch.Tensor,
-                 out_cap: torch.Tensor):
-        _check(model, coded, in_off, in_len, out_cap)
-        dev = coded.device
-        if dev.type != "cuda":
-            raise ValueError(f"no CM decode kernel for device {dev}")
-        L = in_off.shape[0]
-        if L == 0:
-            raise ValueError("no lanes to decode")
-        if (int(in_off.min()) < 0 or int(in_len.min()) < 0
-                or int((in_off + in_len).max()) > coded.numel()
-                or int(out_cap.min()) < 0):
-            raise ValueError("a lane reaches outside coded, or has a "
-                             "negative capacity")
-        lib = build.load("cm_decode")
-        lay = Layout(model)
-        comps = np.zeros((model.n, _NPAR), np.int32)
-        for i, cp in enumerate(lay.comps):
-            comps[i, :len(cp)] = cp
-        off8 = np.array([lay.off8.get(i, 0) for i in range(model.n)],
-                        np.int64)
-        off32 = np.array([lay.off32.get(i, 0) for i in range(model.n)],
-                         np.int64)
-        hcomp = np.frombuffer(model.hcomp or b"\x38", np.uint8)
-        self.dev = dev
-        # kept here so that the tensors outlive the launch
-        self._inputs = (torch.from_numpy(comps).to(dev),
-                        torch.from_numpy(off8).to(dev),
-                        torch.from_numpy(off32).to(dev),
-                        torch.from_numpy(hcomp.copy()).to(dev), lut(dev),
-                        coded, in_off, in_len, out_cap)
-        self._state = initial_lane_state(model, L, dev)
-        self.out_off = _out_offsets(out_cap)
-        self.out = torch.empty(int(out_cap.sum()) or 1, dtype=torch.uint8,
-                               device=dev)
-        self.out_len = torch.empty(L, dtype=torch.int64, device=dev)
-        self.status = torch.empty(L, dtype=torch.int32, device=dev)
+    kernel = "cm_decode"
+    error = CMDecodeError
+    reasons = _REASON
 
-        lib.cm_decode_threads.restype = ctypes.c_int
-        lib.cm_decode_threads.argtypes = [ctypes.c_int, ctypes.c_int]
-        threads = lib.cm_decode_threads(model.n, len(hcomp))
-        if threads < 1:
-            raise ValueError(f"model with {model.n} components does not fit")
-        self._fn = lib.cm_decode_launch
-        self._fn.restype = ctypes.c_int
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        self._fn.argtypes = [P, P, P, I, P, I, I, I, P, P, P, P, P, LL, P, LL,
-                             P, P, P, P, P, P, P, I, I, P]
-        t_comps, t_off8, t_off32, t_hcomp, t_lut = self._inputs[:5]
-        a8, a32, hmem, mmem = self._state
-        self._args = (
-            t_comps.data_ptr(), t_off8.data_ptr(), t_off32.data_ptr(),
-            model.n, t_hcomp.data_ptr(), len(hcomp), model.hh, model.hm,
-            t_lut.data_ptr(), coded.data_ptr(), in_off.data_ptr(),
-            in_len.data_ptr(), a8.data_ptr(), lay.s8, a32.data_ptr(),
-            lay.s32, hmem.data_ptr(), mmem.data_ptr(), self.out.data_ptr(),
-            self.out_off.data_ptr(), out_cap.data_ptr(),
-            self.out_len.data_ptr(), self.status.data_ptr(), L, threads)
-        self._ran = False
-
-    def run(self) -> "Launch":
-        """Launch the kernel on the current stream (once: it consumes the
-        fresh lane state)."""
+    def counted(self) -> None:
         global launches
-        if self._ran:
-            raise RuntimeError("a prepared CM decode launch runs once")
-        self._ran = True
-        with torch.cuda.device(self.dev):
-            rc = self._fn(*self._args,
-                          torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"cm_decode launch failed: CUDA error {rc}")
         launches += 1
-        return self
-
-    def result(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        if not self._ran:
-            raise RuntimeError("the CM decode launch has not run")
-        _raise_failed(self.status)
-        return self.out, self.out_off, self.out_len
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 
 
-class _Plain:
-    """Lane-batched decoder state; every tensor is (L,) unless noted."""
+class _PlainDecoder(PlainModel):
+    """The plain predictor with libzpaq's range decoder."""
 
     def __init__(self, model, coded, in_off, in_len, out_cap):
-        dev = coded.device
-        self.model = model
-        self.lay = Layout(model)
-        self.L = L = in_off.shape[0]
-        self.dev = dev
-        self.lut = lut(dev).long()
+        L = in_off.shape[0]
+        super().__init__(model, L, coded.device)
         self.coded = coded if coded.numel() else torch.zeros(
-            1, dtype=torch.uint8, device=dev)
+            1, dtype=torch.uint8, device=coded.device)
         self.in_off, self.in_len = in_off, in_len
-        self.ar = torch.arange(L, device=dev)
-        self.a8, self.a32, _, _ = initial_lane_state(model, L, dev)
-        self.vms = [VM.for_hcomp(model) for _ in range(L)]
-        z = torch.zeros(L, dtype=torch.int64, device=dev)
-        self.status = z.clone()
-        self.active = torch.ones(L, dtype=torch.bool, device=dev)
+        z = torch.zeros(L, dtype=torch.int64, device=coded.device)
         self.low = z + 1
         self.high = z + _M32
         self.curr = z.clone()
         self.pos = z.clone()
-        self.c8 = z + 1
-        self.hmap4 = z + 1
-        n = model.n
-        self.h = [z.clone() for _ in range(n)]
-        self.p = [z.clone() for _ in range(n)]
-        self.cxt = [z.clone() for _ in range(n)]
-        self.row = [z.clone() for _ in range(n)]
-        self.ma = [z.clone() for _ in range(n)]
-        self.mb = [z.clone() for _ in range(n)]
-        self.ml = [z.clone() for _ in range(n)]
-        self.mc = [z.clone() for _ in range(n)]
         self.nout = z.clone()
         self.out_cap = out_cap
         self.outs = [bytearray() for _ in range(L)]
-
-    # -- helpers ------------------------------------------------------------
-    def fail(self, mask: torch.Tensor, code: int) -> None:
-        mask = mask & self.active
-        if bool(mask.any()):
-            self.status = torch.where(mask, code, self.status)
-            self.active = self.active & ~mask
-
-    def g8(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.a8[self.ar, idx].long()
-
-    def s8(self, idx: torch.Tensor, val: torch.Tensor) -> None:
-        self.a8[self.ar, idx] = val.to(torch.uint8)     # keeps the low byte
-
-    def g32u(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.a32[self.ar, idx].long() & _M32
-
-    def g32s(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.a32[self.ar, idx].long()
-
-    def s32(self, idx: torch.Tensor, val: torch.Tensor) -> None:
-        self.a32[self.ar, idx] = val.to(torch.int32)    # keeps the low 32 bits
 
     def read_byte(self) -> torch.Tensor:
         ok = self.pos < self.in_len
@@ -407,207 +127,6 @@ class _Plain:
             self.pos = self.pos + go.long()
         return y.long()
 
-    def find(self, i: int, cp, cx: torch.Tensor) -> torch.Tensor:
-        size = 64 << cp[1]
-        off = self.lay.off8[i]
-        chk = (cx >> (cp[1] + 2)) & 255
-        h0 = (cx * 16) & (size - 16)
-        h1, h2 = h0 ^ 16, h0 ^ 32
-        ck = [self.g8(off + h) for h in (h0, h1, h2)]
-        pr = [self.g8(off + h + 1) for h in (h0, h1, h2)]
-        m0, m1, m2 = (c == chk for c in ck)
-        hit = torch.where(m0, h0, torch.where(m1, h1, h2))
-        rep = torch.where((pr[0] <= pr[1]) & (pr[0] <= pr[2]), h0,
-                          torch.where(pr[1] < pr[2], h1, h2))
-        anym = m0 | m1 | m2
-        sel = torch.where(anym, hit, rep)
-        miss = torch.nonzero(~anym).flatten()
-        if miss.numel():
-            cols = off + sel[miss, None] + torch.arange(16, device=self.dev)
-            fresh = torch.zeros((miss.numel(), 16), dtype=torch.uint8,
-                                device=self.dev)
-            fresh[:, 0] = chk[miss].to(torch.uint8)
-            self.a8[miss[:, None], cols] = fresh
-        return sel
-
-    # -- one bit ------------------------------------------------------------
-    def predict(self, phase: int) -> torch.Tensor:
-        lay, p, L = self.lay, self.p, self.lut
-        c8, hmap4 = self.c8, self.hmap4
-        for i, cp in enumerate(lay.comps):
-            t = cp[0]
-            if t == T.CONS:
-                p[i] = torch.full_like(c8, (cp[1] - 128) * 4)
-            elif t == T.CM:
-                self.cxt[i] = (self.h[i] ^ hmap4) & ((1 << cp[1]) - 1)
-                p[i] = L[STR_OFF + (self.g32u(lay.off32[i] + self.cxt[i])
-                                    >> 17)]
-            elif t in (T.ICM, T.ISSE):
-                if phase in (0, 4):
-                    self.row[i] = self.find(
-                        i, cp, (self.h[i] + 16 * c8) & _M32)
-                self.cxt[i] = self.g8(lay.off8[i] + self.row[i]
-                                      + (hmap4 & 15))
-                if t == T.ICM:
-                    p[i] = L[STR_OFF + (self.g32u(lay.off32[i] + self.cxt[i])
-                                        >> 8)]
-                else:
-                    base = lay.off32[i] + self.cxt[i] * 2
-                    w0, w1 = self.g32s(base), self.g32s(base + 1)
-                    p[i] = ((w0 * p[cp[2]] + w1 * 64) >> 16).clamp(-2048,
-                                                                    2047)
-            elif t == T.MATCH:
-                a = self.ma[i]
-                on = a != 0
-                mask = (1 << cp[2]) - 1
-                byte = self.g8(lay.off8[i] + ((self.ml[i] - self.mb[i])
-                                              & mask))
-                self.mc[i] = torch.where(on, (byte >> (7 - phase)) & 1,
-                                         self.mc[i])
-                dt2k = 2048 // a.clamp(min=1)
-                pm = (dt2k * (self.mc[i] * -2 + 1)) & 32767
-                p[i] = torch.where(on, L[STR_OFF + pm], 0)
-            elif t == T.AVG:
-                p[i] = (p[cp[1]] * cp[3] + p[cp[2]] * (256 - cp[3])) >> 8
-            elif t == T.MIX2:
-                self.cxt[i] = (self.h[i] + (c8 & cp[5])) & ((1 << cp[1]) - 1)
-                w = self.g32s(lay.off32[i] + self.cxt[i])
-                p[i] = (w * p[cp[2]] + (65536 - w) * p[cp[3]]) >> 16
-            elif t == T.MIX:
-                m = cp[3]
-                self.cxt[i] = ((self.h[i] + (c8 & cp[5]))
-                               & ((1 << cp[1]) - 1)) * m
-                cols = (lay.off32[i] + self.cxt[i][:, None]
-                        + torch.arange(m, device=self.dev))
-                w = self.a32[self.ar[:, None], cols].long()
-                x = torch.stack(p[cp[2]: cp[2] + m], 1)
-                p[i] = (((w >> 8) * x).sum(1) >> 8).clamp(-2048, 2047)
-            elif t == T.SSE:
-                mask = (32 << cp[1]) - 1
-                cx = ((self.h[i] + c8) * 32) & _M32
-                pq = (p[cp[2]] + 992).clamp(0, 1983)
-                wt = pq & 63
-                cx = (cx + (pq >> 6)) & _M32
-                v0 = self.g32u(lay.off32[i] + (cx & mask)) >> 10
-                v1 = self.g32u(lay.off32[i] + ((cx + 1) & mask)) >> 10
-                p[i] = L[STR_OFF + ((v0 * (64 - wt) + v1 * wt) >> 13)]
-                self.cxt[i] = (cx + (wt >> 5)) & _M32
-            else:
-                raise ValueError(f"unknown component type {t}")
-        return L[SQ_OFF + p[-1] + 2048]
-
-    def train(self, idx: torch.Tensor, y: torch.Tensor, limit: int) -> None:
-        pn = self.g32u(idx)
-        count = pn & 1023
-        error = y * 32767 - (pn >> 17)
-        dt = ((1 << 17) // (count * 2 + 3)) * 2
-        pn = (pn + ((error * dt) & 0xFFFFFC00)) & _M32
-        self.s32(idx, pn + (count < limit).long())
-
-    def update(self, phase: int, y: torch.Tensor) -> None:
-        lay, p, L = self.lay, self.p, self.lut
-        hm4 = self.hmap4 & 15
-        for i, cp in enumerate(lay.comps):
-            t = cp[0]
-            if t == T.CM:
-                self.train(lay.off32[i] + self.cxt[i], y, cp[2] * 4)
-            elif t == T.ICM:
-                idx = lay.off8[i] + self.row[i] + hm4
-                self.s8(idx, L[SNS_OFF + self.g8(idx) * 4 + y])
-                j = lay.off32[i] + self.cxt[i]
-                pn = self.g32u(j)
-                self.s32(j, pn + ((y * 32767 - (pn >> 8)) >> 2))
-            elif t == T.MATCH:
-                self.update_match(i, cp, phase, y)
-            elif t == T.MIX2:
-                err = ((y * 32767 - L[SQ_OFF + p[i] + 2048]) * cp[4]) >> 5
-                j = lay.off32[i] + self.cxt[i]
-                w = self.g32s(j) + ((err * (p[cp[2]] - p[cp[3]]) + (1 << 12))
-                                    >> 13)
-                self.s32(j, w.clamp(0, 65535))
-            elif t == T.MIX:
-                m = cp[3]
-                err = ((y * 32767 - L[SQ_OFF + p[i] + 2048]) * cp[4]) >> 4
-                cols = (lay.off32[i] + self.cxt[i][:, None]
-                        + torch.arange(m, device=self.dev))
-                w = self.a32[self.ar[:, None], cols].long()
-                x = torch.stack(p[cp[2]: cp[2] + m], 1)
-                w = (w + ((err[:, None] * x + (1 << 12)) >> 13)).clamp(
-                    -(1 << 19), (1 << 19) - 1)
-                self.a32[self.ar[:, None], cols] = w.to(torch.int32)
-            elif t == T.ISSE:
-                err = y * 32767 - L[SQ_OFF + p[i] + 2048]
-                j = lay.off32[i] + self.cxt[i] * 2
-                w0 = (self.g32s(j) + ((err * p[cp[2]] + (1 << 12)) >> 13)
-                      ).clamp(-(1 << 19), (1 << 19) - 1)
-                w1 = (self.g32s(j + 1) + ((err + 16) >> 5)).clamp(
-                    -(1 << 19), (1 << 19) - 1)
-                self.s32(j, w0)
-                self.s32(j + 1, w1)
-                self.s8(lay.off8[i] + self.row[i] + hm4,
-                        L[SNS_OFF + self.cxt[i] * 4 + y])
-            elif t == T.SSE:
-                self.train(lay.off32[i] + (self.cxt[i] & ((32 << cp[1]) - 1)),
-                           y, cp[4] * 4)
-        # update_tail
-        self.c8 = self.c8 * 2 + y
-        if phase == 7:
-            self.run_hcomp()
-            self.hmap4 = torch.ones_like(self.hmap4)
-            self.c8 = torch.ones_like(self.c8)
-        elif phase == 3:
-            self.hmap4 = (self.hmap4 & 15) << 5 | y << 4 | 1
-        else:
-            self.hmap4 = (self.hmap4 & 0x1F0) | (((self.hmap4 & 15) * 2 + y)
-                                                 & 15)
-
-    def update_match(self, i: int, cp, phase: int, y: torch.Tensor) -> None:
-        lay = self.lay
-        mask = (1 << cp[2]) - 1
-        cmmask = (1 << cp[1]) - 1
-        off8 = lay.off8[i]
-        a = torch.where(self.mc[i] != y, 0, self.ma[i])
-        j = off8 + (self.ml[i] & mask)
-        self.s8(j, self.g8(j) * 2 + y)
-        if phase == 7:
-            ml = (self.ml[i] + 1) & mask
-            hidx = lay.off32[i] + (self.h[i] & cmmask)
-            zero = a == 0
-            mb = torch.where(zero, (ml - self.g32u(hidx)) & _M32, self.mb[i])
-            run = torch.zeros_like(a)
-            act = zero & ((mb & mask) != 0)
-            while bool(act.any()):
-                b1 = self.g8(off8 + ((ml - run - 1) & mask))
-                b2 = self.g8(off8 + ((ml - run - mb - 1) & mask))
-                act = act & (run < 255) & (b1 == b2)
-                run = run + act.long()
-            a = torch.where(zero, run, torch.where(a < 255, a + 1, a))
-            self.s32(hidx, ml)
-            self.ml[i] = ml
-            self.mb[i] = mb
-        self.ma[i] = a
-
-    def run_hcomp(self) -> None:
-        byte = (self.c8 - 256).tolist()
-        act = self.active.tolist()
-        bad = []
-        rows = []
-        for k, vm in enumerate(self.vms):
-            if act[k]:
-                try:
-                    vm.run(byte[k])
-                except (ZPAQLRuntimeError, IndexError):
-                    bad.append(k)
-            rows.append([int(vm.h[i & vm.hmask])
-                         for i in range(self.model.n)])
-        if bad:
-            mask = torch.zeros_like(self.active)
-            mask[bad] = True
-            self.fail(mask, ST_ZPAQL)
-        h = torch.tensor(rows, dtype=torch.int64, device=self.dev)
-        self.h = list(h.unbind(1))
-
-    # -- the byte loop -------------------------------------------------------
     def run(self) -> None:
         short = self.in_len < 4
         self.fail(short, ST_EOF)
@@ -639,27 +158,11 @@ def cm_decode_plain(model: Model, coded: torch.Tensor, in_off: torch.Tensor,
                     in_len: torch.Tensor, out_cap: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain PyTorch decoder, same contract as ``cm_decode``."""
-    _check(model, coded, in_off, in_len, out_cap)
-    dec = _Plain(model, coded, in_off, in_len, out_cap)
+    check_lanes(model, coded, in_off, in_len, out_cap)
+    dec = _PlainDecoder(model, coded, in_off, in_len, out_cap)
     dec.run()
-    _raise_failed(dec.status)
-    out_off = _out_offsets(out_cap)
-    out = torch.zeros(int(out_cap.sum()) or 1, dtype=torch.uint8)
-    offs = out_off.tolist()
-    for k, b in enumerate(dec.outs):
-        if b:
-            out[offs[k]: offs[k] + len(b)] = torch.frombuffer(
-                bytearray(b), dtype=torch.uint8)
-    lens = torch.tensor([len(b) for b in dec.outs], dtype=torch.int64)
-    return out.to(coded.device), out_off, lens.to(coded.device)
-
-
-def lanes_to_bytes(out: torch.Tensor, out_off: torch.Tensor,
-                   out_len: torch.Tensor) -> List[bytes]:
-    """Split a decode result into one bytes object per lane."""
-    flat = out.cpu().numpy()
-    return [flat[o: o + n].tobytes()
-            for o, n in zip(out_off.tolist(), out_len.tolist())]
+    raise_failed(dec.status, CMDecodeError, _REASON)
+    return plain_result(dec.outs, out_cap, coded.device)
 
 
 def pack_streams(streams: Sequence[bytes], caps: Sequence[int], device

@@ -1,0 +1,570 @@
+"""The ZPAQ context-mixing model shared by the CM lane decoder and encoder.
+
+Mirrors ``csrc/cm_model.cuh``: the arena layout of one model (``Layout``, a
+copy of ``codec_arena._Layout``), the combined squash/stretch/SNS table,
+fresh lane state, the launch of either lane kernel (``LaneLaunch``: both
+kernels take the same arguments) and the plain PyTorch predictor
+(``PlainModel``) that the plain decoder and encoder extend with their range
+coders.
+
+The plain predictor batches lanes in ``int64`` tensors (CPU ``uint32`` has
+no arithmetic), keeps the arenas as ``uint8`` / ``int32`` tensors widened
+after each gather, and runs HCOMP per lane through the scalar
+``zpaql.vm.VM``. It has no HCOMP step limit; the kernels fail a lane whose
+HCOMP run exceeds 2^24 instructions for one byte (ROADMAP.md, Queue 3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..models import tables as T
+from ..zpaql.header import Model
+from ..zpaql.vm import VM, ZPAQLRuntimeError
+from . import build
+
+ST_OK, ST_OVERRUN, ST_CORRUPT, ST_EOF, ST_ZPAQL = range(5)
+
+_M32 = 0xFFFFFFFF
+_NPAR = 6
+
+# combined LUT: squash(4096) | stretch(32768) | sns(1024), as codec_arena
+SQ_OFF = 0
+STR_OFF = 4096
+SNS_OFF = 4096 + 32768
+_BIGLUT = np.concatenate([T.SQUASHT.astype(np.int32),
+                          T.STRETCHT.astype(np.int32),
+                          T.SNS.astype(np.int32)]).astype(np.int32)
+
+
+def lut(device) -> torch.Tensor:
+    """The combined squash/stretch/SNS table as an int32 tensor."""
+    return torch.from_numpy(_BIGLUT).to(device)
+
+
+class Layout:
+    """Arena segment offsets of one model (``codec_arena._Layout``)."""
+
+    def __init__(self, model: Model):
+        self.comps = [tuple(c) for c in model.comps]
+        s8 = 0
+        s32 = 0
+        self.off8: Dict[int, int] = {}
+        self.off32: Dict[int, int] = {}
+        for i, cp in enumerate(self.comps):
+            t = cp[0]
+            if t == T.ICM:
+                self.off8[i] = s8
+                s8 += 64 << cp[1]
+                self.off32[i] = s32
+                s32 += 256
+            elif t == T.ISSE:
+                self.off8[i] = s8
+                s8 += 64 << cp[1]
+                self.off32[i] = s32
+                s32 += 512
+            elif t == T.MATCH:
+                self.off8[i] = s8
+                s8 += 1 << cp[2]
+                self.off32[i] = s32
+                s32 += 1 << cp[1]
+            elif t == T.CM:
+                self.off32[i] = s32
+                s32 += 1 << cp[1]
+            elif t == T.MIX:
+                self.off32[i] = s32
+                s32 += (1 << cp[1]) * cp[3]
+            elif t == T.MIX2:
+                self.off32[i] = s32
+                s32 += 1 << cp[1]
+            elif t == T.SSE:
+                self.off32[i] = s32
+                s32 += 32 << cp[1]
+        self.s8 = max(s8, 1)
+        self.s32 = max(s32, 1)
+
+    def init_rows(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Single-lane initial arena contents (u8 arena, u32 arena)."""
+        a8 = np.zeros(self.s8, np.uint8)
+        a32 = np.zeros(self.s32, np.uint32)
+        isse_wt = np.zeros(512, np.uint32)
+        isse_wt[0::2] = 1 << 15
+        w1 = np.clip(
+            T.STRETCHT[(T.CMINIT >> 8).astype(np.int64)].astype(np.int64)
+            * 1024, -(1 << 19), (1 << 19) - 1).astype(np.int32)
+        isse_wt[1::2] = w1.view(np.uint32)
+        for i, cp in enumerate(self.comps):
+            t = cp[0]
+            if t == T.CM:
+                a32[self.off32[i]: self.off32[i] + (1 << cp[1])] = 0x80000000
+            elif t == T.ICM:
+                a32[self.off32[i]: self.off32[i] + 256] = \
+                    T.CMINIT.astype(np.uint32)
+            elif t == T.ISSE:
+                a32[self.off32[i]: self.off32[i] + 512] = isse_wt
+            elif t == T.MATCH:
+                a8[self.off8[i]] = 1
+            elif t == T.MIX:
+                m = cp[3]
+                n = (1 << cp[1]) * m
+                a32[self.off32[i]: self.off32[i] + n] = \
+                    np.int32(65536 // m).view(np.uint32)
+            elif t == T.MIX2:
+                a32[self.off32[i]: self.off32[i] + (1 << cp[1])] = 32768
+            elif t == T.SSE:
+                base = np.array(
+                    [(np.uint32(T.SQUASHT[j * 64 - 992 + 2048]) << 17)
+                     | np.uint32(cp[3]) for j in range(32)], np.uint32)
+                n = 32 << cp[1]
+                a32[self.off32[i]: self.off32[i] + n] = np.tile(base, n // 32)
+        return a8, a32
+
+
+def initial_lane_state(model: Model, L: int, device
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Fresh model state for ``L`` lanes on ``device``: the u8 arena
+    (L, s8) ``uint8``, the u32 arena (L, s32) as ``int32`` bit patterns,
+    HCOMP's H (L, 2^hh) ``int32`` and M (L, 2^hm) ``uint8``, all zero but
+    the arena rows of ``Layout.init_rows``."""
+    a8_row, a32_row = Layout(model).init_rows()
+    a8 = torch.from_numpy(a8_row).to(device).expand(L, -1).contiguous()
+    a32 = torch.from_numpy(a32_row.view(np.int32)).to(device).expand(
+        L, -1).contiguous()
+    hmem = torch.zeros((L, 1 << model.hh), dtype=torch.int32, device=device)
+    mmem = torch.zeros((L, 1 << model.hm), dtype=torch.uint8, device=device)
+    return a8, a32, hmem, mmem
+
+
+def lane_bytes(model: Model) -> int:
+    """Device bytes of one lane's model state (arenas, H and M)."""
+    lay = Layout(model)
+    return lay.s8 + 4 * lay.s32 + (4 << model.hh) + (1 << model.hm)
+
+
+def check_lanes(model: Model, src: torch.Tensor, in_off: torch.Tensor,
+                in_len: torch.Tensor, out_cap: torch.Tensor) -> None:
+    """Validate a lane kernel's inputs: ``src`` a contiguous 1-D uint8
+    tensor, the per-lane spans contiguous 1-D int64 tensors of one shape on
+    its device, and a model with components."""
+    if model.n == 0:
+        raise ValueError("store-mode blocks have no model to code")
+    if src.dtype != torch.uint8 or src.dim() != 1:
+        raise TypeError("the lanes' bytes must be a 1-D uint8 tensor")
+    for name, t in (("in_off", in_off), ("in_len", in_len),
+                    ("out_cap", out_cap)):
+        if t.dtype != torch.int64 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int64 tensor")
+        if t.device != src.device:
+            raise ValueError(f"{name} is on {t.device}, the lanes' bytes on "
+                             f"{src.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not src.is_contiguous():
+        raise ValueError("the lanes' bytes must be contiguous")
+    if not in_off.shape == in_len.shape == out_cap.shape:
+        raise ValueError("in_off, in_len and out_cap differ in shape")
+
+
+def raise_failed(status: torch.Tensor, error: type,
+                 reasons: Dict[int, str]) -> None:
+    """Raise ``error`` naming the first failed lanes, if any failed."""
+    bad = torch.nonzero(status).flatten().tolist()
+    if bad:
+        st = status.tolist()
+        raise error("; ".join(
+            f"lane {i}: {reasons.get(st[i], f'status {st[i]}')}"
+            for i in bad[:4]) + (f" (+{len(bad) - 4} lanes)"
+                                 if len(bad) > 4 else ""))
+
+
+def out_offsets(out_cap: torch.Tensor) -> torch.Tensor:
+    off = torch.zeros_like(out_cap)
+    if out_cap.numel() > 1:
+        off[1:] = torch.cumsum(out_cap, 0)[:-1]
+    return off
+
+
+def plain_result(outs: List[bytearray], out_cap: torch.Tensor, device
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-lane byte strings in the kernels' output layout ``(out, out_off,
+    out_len)``: lane i at ``out[out_off[i]:out_off[i] + out_len[i]]``."""
+    out_off = out_offsets(out_cap)
+    out = torch.zeros(int(out_cap.sum()) or 1, dtype=torch.uint8)
+    offs = out_off.tolist()
+    for k, b in enumerate(outs):
+        if b:
+            out[offs[k]: offs[k] + len(b)] = torch.frombuffer(
+                bytearray(b), dtype=torch.uint8)
+    lens = torch.tensor([len(b) for b in outs], dtype=torch.int64)
+    return out.to(device), out_off, lens.to(device)
+
+
+def lanes_to_bytes(out: torch.Tensor, out_off: torch.Tensor,
+                   out_len: torch.Tensor) -> List[bytes]:
+    """Split a lane kernel's result into one bytes object per lane."""
+    flat = out.cpu().numpy()
+    return [flat[o: o + n].tobytes()
+            for o, n in zip(out_off.tolist(), out_len.tolist())]
+
+
+class LaneLaunch:
+    """One launch of a CM lane kernel over every lane, prepared: inputs
+    checked, the model's tables and fresh lane state on the card, outputs
+    allocated. ``run()`` launches the kernel once; ``result()`` raises
+    ``error`` for a failed lane and returns ``(out, out_off, out_len)``.
+    The split lets a caller time the launch apart from the state set-up.
+
+    Subclasses name the kernel (its library under ``csrc/`` and the prefix
+    of its ``_threads`` / ``_launch`` symbols), the error, the reason of
+    each status, and count their launches in ``counted()``."""
+
+    kernel = ""
+    error: type = RuntimeError
+    reasons: Dict[int, str] = {}
+
+    def __init__(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
+                 in_len: torch.Tensor, out_cap: torch.Tensor):
+        check_lanes(model, src, in_off, in_len, out_cap)
+        dev = src.device
+        if dev.type != "cuda":
+            raise ValueError(f"no {self.kernel} kernel for device {dev}")
+        L = in_off.shape[0]
+        if L == 0:
+            raise ValueError("no lanes to code")
+        if (int(in_off.min()) < 0 or int(in_len.min()) < 0
+                or int((in_off + in_len).max()) > src.numel()
+                or int(out_cap.min()) < 0):
+            raise ValueError("a lane reaches outside its input, or has a "
+                             "negative capacity")
+        lib = build.load(self.kernel)
+        lay = Layout(model)
+        comps = np.zeros((model.n, _NPAR), np.int32)
+        for i, cp in enumerate(lay.comps):
+            comps[i, :len(cp)] = cp
+        off8 = np.array([lay.off8.get(i, 0) for i in range(model.n)],
+                        np.int64)
+        off32 = np.array([lay.off32.get(i, 0) for i in range(model.n)],
+                         np.int64)
+        hcomp = np.frombuffer(model.hcomp or b"\x38", np.uint8)
+        self.dev = dev
+        # kept here so that the tensors outlive the launch
+        self._inputs = (torch.from_numpy(comps).to(dev),
+                        torch.from_numpy(off8).to(dev),
+                        torch.from_numpy(off32).to(dev),
+                        torch.from_numpy(hcomp.copy()).to(dev), lut(dev),
+                        src, in_off, in_len, out_cap)
+        self._state = initial_lane_state(model, L, dev)
+        self.out_off = out_offsets(out_cap)
+        self.out = torch.empty(int(out_cap.sum()) or 1, dtype=torch.uint8,
+                               device=dev)
+        self.out_len = torch.empty(L, dtype=torch.int64, device=dev)
+        self.status = torch.empty(L, dtype=torch.int32, device=dev)
+
+        threads_fn = getattr(lib, f"{self.kernel}_threads")
+        threads_fn.restype = ctypes.c_int
+        threads_fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        threads = threads_fn(model.n, len(hcomp))
+        if threads < 1:
+            raise ValueError(f"model with {model.n} components does not fit")
+        self._fn = getattr(lib, f"{self.kernel}_launch")
+        self._fn.restype = ctypes.c_int
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self._fn.argtypes = [P, P, P, I, P, I, I, I, P, P, P, P, P, LL, P, LL,
+                             P, P, P, P, P, P, P, I, I, P]
+        t_comps, t_off8, t_off32, t_hcomp, t_lut = self._inputs[:5]
+        a8, a32, hmem, mmem = self._state
+        self._args = (
+            t_comps.data_ptr(), t_off8.data_ptr(), t_off32.data_ptr(),
+            model.n, t_hcomp.data_ptr(), len(hcomp), model.hh, model.hm,
+            t_lut.data_ptr(), src.data_ptr(), in_off.data_ptr(),
+            in_len.data_ptr(), a8.data_ptr(), lay.s8, a32.data_ptr(),
+            lay.s32, hmem.data_ptr(), mmem.data_ptr(), self.out.data_ptr(),
+            self.out_off.data_ptr(), out_cap.data_ptr(),
+            self.out_len.data_ptr(), self.status.data_ptr(), L, threads)
+        self._ran = False
+
+    def counted(self) -> None:
+        raise NotImplementedError
+
+    def run(self) -> "LaneLaunch":
+        """Launch the kernel on the current stream (once: it consumes the
+        fresh lane state)."""
+        if self._ran:
+            raise RuntimeError(f"a prepared {self.kernel} launch runs once")
+        self._ran = True
+        with torch.cuda.device(self.dev):
+            rc = self._fn(*self._args,
+                          torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel} launch failed: CUDA error {rc}")
+        self.counted()
+        return self
+
+    def result(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if not self._ran:
+            raise RuntimeError(f"the {self.kernel} launch has not run")
+        raise_failed(self.status, self.error, self.reasons)
+        return self.out, self.out_off, self.out_len
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch predictor
+
+
+class PlainModel:
+    """Lane-batched predictor state and its ``predict`` / ``update``; every
+    tensor is (L,) unless noted. The coders add their range coder and set
+    ``active`` (lanes still coding) and ``status``."""
+
+    def __init__(self, model: Model, L: int, dev):
+        self.model = model
+        self.lay = Layout(model)
+        self.L = L
+        self.dev = dev
+        self.lut = lut(dev).long()
+        self.ar = torch.arange(L, device=dev)
+        self.a8, self.a32, _, _ = initial_lane_state(model, L, dev)
+        self.vms = [VM.for_hcomp(model) for _ in range(L)]
+        z = torch.zeros(L, dtype=torch.int64, device=dev)
+        self.status = z.clone()
+        self.active = torch.ones(L, dtype=torch.bool, device=dev)
+        self.c8 = z + 1
+        self.hmap4 = z + 1
+        n = model.n
+        self.h = [z.clone() for _ in range(n)]
+        self.p = [z.clone() for _ in range(n)]
+        self.cxt = [z.clone() for _ in range(n)]
+        self.row = [z.clone() for _ in range(n)]
+        self.ma = [z.clone() for _ in range(n)]
+        self.mb = [z.clone() for _ in range(n)]
+        self.ml = [z.clone() for _ in range(n)]
+        self.mc = [z.clone() for _ in range(n)]
+
+    # -- helpers ------------------------------------------------------------
+    def fail(self, mask: torch.Tensor, code: int) -> None:
+        mask = mask & self.active
+        if bool(mask.any()):
+            self.status = torch.where(mask, code, self.status)
+            self.active = self.active & ~mask
+
+    def g8(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.a8[self.ar, idx].long()
+
+    def s8(self, idx: torch.Tensor, val: torch.Tensor) -> None:
+        self.a8[self.ar, idx] = val.to(torch.uint8)     # keeps the low byte
+
+    def g32u(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.a32[self.ar, idx].long() & _M32
+
+    def g32s(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.a32[self.ar, idx].long()
+
+    def s32(self, idx: torch.Tensor, val: torch.Tensor) -> None:
+        self.a32[self.ar, idx] = val.to(torch.int32)    # keeps the low 32 bits
+
+    def find(self, i: int, cp, cx: torch.Tensor) -> torch.Tensor:
+        size = 64 << cp[1]
+        off = self.lay.off8[i]
+        chk = (cx >> (cp[1] + 2)) & 255
+        h0 = (cx * 16) & (size - 16)
+        h1, h2 = h0 ^ 16, h0 ^ 32
+        ck = [self.g8(off + h) for h in (h0, h1, h2)]
+        pr = [self.g8(off + h + 1) for h in (h0, h1, h2)]
+        m0, m1, m2 = (c == chk for c in ck)
+        hit = torch.where(m0, h0, torch.where(m1, h1, h2))
+        rep = torch.where((pr[0] <= pr[1]) & (pr[0] <= pr[2]), h0,
+                          torch.where(pr[1] < pr[2], h1, h2))
+        anym = m0 | m1 | m2
+        sel = torch.where(anym, hit, rep)
+        miss = torch.nonzero(~anym).flatten()
+        if miss.numel():
+            cols = off + sel[miss, None] + torch.arange(16, device=self.dev)
+            fresh = torch.zeros((miss.numel(), 16), dtype=torch.uint8,
+                                device=self.dev)
+            fresh[:, 0] = chk[miss].to(torch.uint8)
+            self.a8[miss[:, None], cols] = fresh
+        return sel
+
+    # -- one bit ------------------------------------------------------------
+    def predict(self, phase: int) -> torch.Tensor:
+        """P(next bit = 1) in 1/4096 units; ``phase`` is the bit's index in
+        its byte, from the top."""
+        lay, p, L = self.lay, self.p, self.lut
+        c8, hmap4 = self.c8, self.hmap4
+        for i, cp in enumerate(lay.comps):
+            t = cp[0]
+            if t == T.CONS:
+                p[i] = torch.full_like(c8, (cp[1] - 128) * 4)
+            elif t == T.CM:
+                self.cxt[i] = (self.h[i] ^ hmap4) & ((1 << cp[1]) - 1)
+                p[i] = L[STR_OFF + (self.g32u(lay.off32[i] + self.cxt[i])
+                                    >> 17)]
+            elif t in (T.ICM, T.ISSE):
+                if phase in (0, 4):
+                    self.row[i] = self.find(
+                        i, cp, (self.h[i] + 16 * c8) & _M32)
+                self.cxt[i] = self.g8(lay.off8[i] + self.row[i]
+                                      + (hmap4 & 15))
+                if t == T.ICM:
+                    p[i] = L[STR_OFF + (self.g32u(lay.off32[i] + self.cxt[i])
+                                        >> 8)]
+                else:
+                    base = lay.off32[i] + self.cxt[i] * 2
+                    w0, w1 = self.g32s(base), self.g32s(base + 1)
+                    p[i] = ((w0 * p[cp[2]] + w1 * 64) >> 16).clamp(-2048,
+                                                                    2047)
+            elif t == T.MATCH:
+                a = self.ma[i]
+                on = a != 0
+                mask = (1 << cp[2]) - 1
+                byte = self.g8(lay.off8[i] + ((self.ml[i] - self.mb[i])
+                                              & mask))
+                self.mc[i] = torch.where(on, (byte >> (7 - phase)) & 1,
+                                         self.mc[i])
+                dt2k = 2048 // a.clamp(min=1)
+                pm = (dt2k * (self.mc[i] * -2 + 1)) & 32767
+                p[i] = torch.where(on, L[STR_OFF + pm], 0)
+            elif t == T.AVG:
+                p[i] = (p[cp[1]] * cp[3] + p[cp[2]] * (256 - cp[3])) >> 8
+            elif t == T.MIX2:
+                self.cxt[i] = (self.h[i] + (c8 & cp[5])) & ((1 << cp[1]) - 1)
+                w = self.g32s(lay.off32[i] + self.cxt[i])
+                p[i] = (w * p[cp[2]] + (65536 - w) * p[cp[3]]) >> 16
+            elif t == T.MIX:
+                m = cp[3]
+                self.cxt[i] = ((self.h[i] + (c8 & cp[5]))
+                               & ((1 << cp[1]) - 1)) * m
+                cols = (lay.off32[i] + self.cxt[i][:, None]
+                        + torch.arange(m, device=self.dev))
+                w = self.a32[self.ar[:, None], cols].long()
+                x = torch.stack(p[cp[2]: cp[2] + m], 1)
+                p[i] = (((w >> 8) * x).sum(1) >> 8).clamp(-2048, 2047)
+            elif t == T.SSE:
+                mask = (32 << cp[1]) - 1
+                cx = ((self.h[i] + c8) * 32) & _M32
+                pq = (p[cp[2]] + 992).clamp(0, 1983)
+                wt = pq & 63
+                cx = (cx + (pq >> 6)) & _M32
+                v0 = self.g32u(lay.off32[i] + (cx & mask)) >> 10
+                v1 = self.g32u(lay.off32[i] + ((cx + 1) & mask)) >> 10
+                p[i] = L[STR_OFF + ((v0 * (64 - wt) + v1 * wt) >> 13)]
+                self.cxt[i] = (cx + (wt >> 5)) & _M32
+            else:
+                raise ValueError(f"unknown component type {t}")
+        return L[SQ_OFF + p[-1] + 2048]
+
+    def train(self, idx: torch.Tensor, y: torch.Tensor, limit: int) -> None:
+        pn = self.g32u(idx)
+        count = pn & 1023
+        error = y * 32767 - (pn >> 17)
+        dt = ((1 << 17) // (count * 2 + 3)) * 2
+        pn = (pn + ((error * dt) & 0xFFFFFC00)) & _M32
+        self.s32(idx, pn + (count < limit).long())
+
+    def update(self, phase: int, y: torch.Tensor) -> None:
+        lay, p, L = self.lay, self.p, self.lut
+        hm4 = self.hmap4 & 15
+        for i, cp in enumerate(lay.comps):
+            t = cp[0]
+            if t == T.CM:
+                self.train(lay.off32[i] + self.cxt[i], y, cp[2] * 4)
+            elif t == T.ICM:
+                idx = lay.off8[i] + self.row[i] + hm4
+                self.s8(idx, L[SNS_OFF + self.g8(idx) * 4 + y])
+                j = lay.off32[i] + self.cxt[i]
+                pn = self.g32u(j)
+                self.s32(j, pn + ((y * 32767 - (pn >> 8)) >> 2))
+            elif t == T.MATCH:
+                self.update_match(i, cp, phase, y)
+            elif t == T.MIX2:
+                err = ((y * 32767 - L[SQ_OFF + p[i] + 2048]) * cp[4]) >> 5
+                j = lay.off32[i] + self.cxt[i]
+                w = self.g32s(j) + ((err * (p[cp[2]] - p[cp[3]]) + (1 << 12))
+                                    >> 13)
+                self.s32(j, w.clamp(0, 65535))
+            elif t == T.MIX:
+                m = cp[3]
+                err = ((y * 32767 - L[SQ_OFF + p[i] + 2048]) * cp[4]) >> 4
+                cols = (lay.off32[i] + self.cxt[i][:, None]
+                        + torch.arange(m, device=self.dev))
+                w = self.a32[self.ar[:, None], cols].long()
+                x = torch.stack(p[cp[2]: cp[2] + m], 1)
+                w = (w + ((err[:, None] * x + (1 << 12)) >> 13)).clamp(
+                    -(1 << 19), (1 << 19) - 1)
+                self.a32[self.ar[:, None], cols] = w.to(torch.int32)
+            elif t == T.ISSE:
+                err = y * 32767 - L[SQ_OFF + p[i] + 2048]
+                j = lay.off32[i] + self.cxt[i] * 2
+                w0 = (self.g32s(j) + ((err * p[cp[2]] + (1 << 12)) >> 13)
+                      ).clamp(-(1 << 19), (1 << 19) - 1)
+                w1 = (self.g32s(j + 1) + ((err + 16) >> 5)).clamp(
+                    -(1 << 19), (1 << 19) - 1)
+                self.s32(j, w0)
+                self.s32(j + 1, w1)
+                self.s8(lay.off8[i] + self.row[i] + hm4,
+                        L[SNS_OFF + self.cxt[i] * 4 + y])
+            elif t == T.SSE:
+                self.train(lay.off32[i] + (self.cxt[i] & ((32 << cp[1]) - 1)),
+                           y, cp[4] * 4)
+        # update_tail
+        self.c8 = self.c8 * 2 + y
+        if phase == 7:
+            self.run_hcomp()
+            self.hmap4 = torch.ones_like(self.hmap4)
+            self.c8 = torch.ones_like(self.c8)
+        elif phase == 3:
+            self.hmap4 = (self.hmap4 & 15) << 5 | y << 4 | 1
+        else:
+            self.hmap4 = (self.hmap4 & 0x1F0) | (((self.hmap4 & 15) * 2 + y)
+                                                 & 15)
+
+    def update_match(self, i: int, cp, phase: int, y: torch.Tensor) -> None:
+        lay = self.lay
+        mask = (1 << cp[2]) - 1
+        cmmask = (1 << cp[1]) - 1
+        off8 = lay.off8[i]
+        a = torch.where(self.mc[i] != y, 0, self.ma[i])
+        j = off8 + (self.ml[i] & mask)
+        self.s8(j, self.g8(j) * 2 + y)
+        if phase == 7:
+            ml = (self.ml[i] + 1) & mask
+            hidx = lay.off32[i] + (self.h[i] & cmmask)
+            zero = a == 0
+            mb = torch.where(zero, (ml - self.g32u(hidx)) & _M32, self.mb[i])
+            run = torch.zeros_like(a)
+            act = zero & ((mb & mask) != 0)
+            while bool(act.any()):
+                b1 = self.g8(off8 + ((ml - run - 1) & mask))
+                b2 = self.g8(off8 + ((ml - run - mb - 1) & mask))
+                act = act & (run < 255) & (b1 == b2)
+                run = run + act.long()
+            a = torch.where(zero, run, torch.where(a < 255, a + 1, a))
+            self.s32(hidx, ml)
+            self.ml[i] = ml
+            self.mb[i] = mb
+        self.ma[i] = a
+
+    def run_hcomp(self) -> None:
+        byte = (self.c8 - 256).tolist()
+        act = self.active.tolist()
+        bad = []
+        rows = []
+        for k, vm in enumerate(self.vms):
+            if act[k]:
+                try:
+                    vm.run(byte[k])
+                except (ZPAQLRuntimeError, IndexError):
+                    bad.append(k)
+            rows.append([int(vm.h[i & vm.hmask])
+                         for i in range(self.model.n)])
+        if bad:
+            mask = torch.zeros_like(self.active)
+            mask[bad] = True
+            self.fail(mask, ST_ZPAQL)
+        h = torch.tensor(rows, dtype=torch.int64, device=self.dev)
+        self.h = list(h.unbind(1))

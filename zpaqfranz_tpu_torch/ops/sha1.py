@@ -8,7 +8,9 @@ the thread. Inputs are one flat ``uint8`` tensor of concatenated messages with
 message, which ``to_digests`` turns into 20-byte big-endian digests.
 
 ``sha1_lanes`` takes the plain PyTorch version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel or raises. The input checks, the
+launch and the packing here serve the SHA-256 lane kernel too
+(``ops/sha256.py``).
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ _IV = (0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0)
 _K = (0x5A827999, 0x6ED9EBA1, 0x8F1BBCDC, 0xCA62C1D6)
 
 
-def _check(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor
-           ) -> None:
+def check_lanes(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor
+                ) -> None:
     if data.dtype != torch.uint8 or data.dim() != 1:
         raise TypeError("data must be a 1-D uint8 tensor")
     for name, t in (("off", off), ("length", length)):
@@ -73,13 +75,21 @@ def _compress(st: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def sha1_plain(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor
                ) -> torch.Tensor:
-    """Plain PyTorch SHA-1 of every lane, block by block in int64 masked to
-    32 bits (CPU ``uint32`` has no shifts or adds). Returns (N, 5) uint32."""
-    _check(data, off, length)
+    """Plain PyTorch SHA-1 of every lane. Returns (N, 5) uint32."""
+    return plain_lanes(_IV, _compress, data, off, length)
+
+
+def plain_lanes(iv, compress, data: torch.Tensor, off: torch.Tensor,
+                length: torch.Tensor) -> torch.Tensor:
+    """A Merkle-Damgard hash of every lane in plain PyTorch, block by block
+    in int64 masked to 32 bits (CPU ``uint32`` has no shifts or adds), with
+    the FIPS 180-4 padding: ``compress(st, w)`` maps (N, len(iv)) states and
+    (N, 16) big-endian words to new states. Returns (N, len(iv)) uint32."""
+    check_lanes(data, off, length)
     dev = data.device
     n = off.shape[0]
     if n == 0:
-        return torch.empty((0, 5), dtype=torch.uint32, device=dev)
+        return torch.empty((0, len(iv)), dtype=torch.uint32, device=dev)
     if data.numel() == 0:
         data = torch.zeros(1, dtype=torch.uint8, device=dev)
     nblk = (length + 9 + 63) // 64
@@ -87,7 +97,7 @@ def sha1_plain(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor
     kk = torch.arange(64, device=dev)
     shifts = torch.arange(24, -1, -8, device=dev)
     len_bytes = (bits[:, None] >> torch.arange(56, -1, -8, device=dev)) & 255
-    st = torch.tensor(_IV, dtype=torch.int64, device=dev).repeat(n, 1)
+    st = torch.tensor(iv, dtype=torch.int64, device=dev).repeat(n, 1)
     for blk in range(int(nblk.max())):
         pos = blk * 64 + kk[None, :]
         idx = (off[:, None] + pos).clamp(max=data.numel() - 1)
@@ -96,44 +106,47 @@ def sha1_plain(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor
         last = (nblk - 1 == blk)[:, None]
         byte[:, 56:] = torch.where(last, len_bytes, byte[:, 56:])
         w = (byte.view(n, 16, 4) << shifts).sum(2)
-        st = torch.where((blk < nblk)[:, None], _compress(st, w), st)
+        st = torch.where((blk < nblk)[:, None], compress(st, w), st)
     return st.to(torch.uint32)
 
 
 def sha1_lanes(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor
                ) -> torch.Tensor:
     """SHA-1 state (N, 5) uint32 of ``data[off[i]:off[i] + length[i]]``."""
-    _check(data, off, length)
+    global launches
+    check_lanes(data, off, length)
     if data.device.type == "cpu":
         return sha1_plain(data, off, length)
+    out = launch_lanes("sha1_lanes", 5, data, off, length)
+    if off.numel():
+        launches += 1
+    return out
+
+
+def launch_lanes(kernel: str, nstate: int, data: torch.Tensor,
+                 off: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """One launch of a hash lane kernel (``csrc/<kernel>.cu``, C symbol
+    ``<kernel>_launch``) over every lane on the current stream; returns the
+    (N, nstate) uint32 states. No launch for N = 0."""
     if data.device.type != "cuda":
-        raise ValueError(f"no SHA-1 kernel for device {data.device}")
-    with torch.cuda.device(data.device):
-        return _launch(build.load("sha1_lanes"),
-                       torch.cuda.current_stream().cuda_stream,
-                       data, off, length)
-
-
-def _launch(lib, stream, data: torch.Tensor, off: torch.Tensor,
-            length: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel in ``lib`` over every lane."""
-    global launches
+        raise ValueError(f"no {kernel} kernel for device {data.device}")
     n = off.shape[0]
-    out = torch.empty((n, 5), dtype=torch.uint32, device=data.device)
+    out = torch.empty((n, nstate), dtype=torch.uint32, device=data.device)
     if n == 0:
         return out
     if (int(off.min()) < 0 or int(length.min()) < 0
             or int((off + length).max()) > data.numel()):
         raise ValueError("a lane reaches outside data")
     order = torch.argsort(length, descending=True, stable=True)
-    fn = lib.sha1_lanes_launch
+    fn = getattr(build.load(kernel), f"{kernel}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    rc = fn(data.data_ptr(), off.data_ptr(), length.data_ptr(),
-            order.data_ptr(), out.data_ptr(), n, stream)
+    with torch.cuda.device(data.device):
+        rc = fn(data.data_ptr(), off.data_ptr(), length.data_ptr(),
+                order.data_ptr(), out.data_ptr(), n,
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"sha1_lanes launch failed: CUDA error {rc}")
-    launches += 1
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
     return out
 
 
@@ -151,7 +164,7 @@ def pack_messages(messages: Sequence[bytes], device) -> Tuple[
 
 
 def to_digests(state: torch.Tensor) -> List[bytes]:
-    """(N, 5) uint32 states -> 20-byte big-endian digests."""
+    """(N, k) uint32 states -> 4k-byte big-endian digests."""
     words = state.view(torch.int32).cpu().numpy().view(np.uint32)
     return [row.astype(">u4").tobytes() for row in words]
 

@@ -1,27 +1,31 @@
-"""Device engine: jidac d blocks as lanes of the CM decode kernel.
+"""Device engine: jidac d blocks as lanes of the CM decode and encode kernels.
 
 The GPU mapping of the reference's one-thread-per-block parallelism: every
-modeled d block is one lane of ``ops.cm_decode`` (one CUDA thread), lanes
-that share a model (the COMP/HCOMP header) go out in one launch, and each
-lane stops at its own end-of-segment bit. Postprocessing (PASS strip, LZ77
-and BWT inversion) and store blocks (``model.n == 0``) stay on the host,
-in the native engine.
+modeled d block is one lane of ``ops.cm_decode`` or ``ops.cm_encode`` (one
+CUDA thread), lanes that share a model (the COMP/HCOMP header) go out in one
+launch, and each lane runs to its own end. Launches are sized by
+``lanes_per_launch`` against the card's free memory. Preprocessing (LZ77,
+BWT, E8E9) and postprocessing (PASS strip, LZ77 and BWT inversion) and store
+blocks (``model.n == 0``) stay on the host, in the native engine.
 
 Also holds the host helpers of ``add`` (``prepare_payload``), shared with
-the reference so the port's host add writes the same archive bytes.
+the reference, so a device add and a host add write the same archive bytes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+import sys
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import native
 from ..errors import ExtractError
-from ..codec.container import ByteReader, find_block, read_comment, read_filename
-from ..ops import cm_decode as cmd
+from ..codec.container import (TAG, ByteReader, find_block, read_comment,
+                               read_filename)
+from ..ops import cm_decode as cmd, cm_encode as cme
+from ..ops.cm_model import lane_bytes
 from ..zpaql.header import Model
 
 #: pre-postprocessing stream bound over a block's usize: BWT adds 5 bytes
@@ -32,15 +36,14 @@ OUT_SLACK = 8192
 _MEM_SHARE = 0.8
 
 
-def lanes_per_launch(model: Model, streams: Sequence[bytes],
-                     caps: Sequence[int], device: torch.device) -> int:
-    """Lanes that fit one launch: per-lane model state plus the lane's
-    share of coded input and output, against the card's free memory."""
+def lanes_per_launch(model: Model, lane_io: int, device: torch.device
+                     ) -> int:
+    """Lanes that fit one launch: per-lane model state plus ``lane_io``
+    bytes of coded input and output per lane, against the card's free
+    memory. On the CPU the plain versions take every lane in one call."""
     if device.type != "cuda":
-        return len(streams)
-    per_lane = (cmd.lane_bytes(model)
-                + math.ceil((sum(map(len, streams)) + sum(caps))
-                            / len(streams)))
+        return sys.maxsize
+    per_lane = lane_bytes(model) + lane_io
     free, _ = torch.cuda.mem_get_info(device)
     fit = int(free * _MEM_SHARE) // per_lane
     if fit < 1:
@@ -56,12 +59,24 @@ def decode_streams(model: Model, streams: Sequence[bytes],
     stream (selector prefix + body); lane i may hold at most ``caps[i]``
     bytes, and a lane that would exceed it raises."""
     out: List[bytes] = []
-    step = lanes_per_launch(model, streams, caps, device)
+    lane_io = math.ceil((sum(map(len, streams)) + sum(caps)) / len(streams))
+    step = lanes_per_launch(model, lane_io, device)
     for s in range(0, len(streams), step):
         packed = cmd.pack_streams(streams[s:s + step], caps[s:s + step],
                                   device)
         out += cmd.lanes_to_bytes(*cmd.cm_decode(model, *packed))
     return out
+
+
+def encode_streams(model: Model, payloads: Sequence[bytes],
+                   device: torch.device) -> List[bytes]:
+    """Code payloads (selector prefix included) as lanes of one launch on
+    ``device``; the caller sizes the batch with ``lanes_per_launch``.
+    Returns each lane's coded segment body; lane i may take at most
+    ``cm_encode.lane_cap(len(payloads[i]))`` bytes, and a lane that would
+    exceed it raises."""
+    packed = cme.pack_payloads(payloads, device)
+    return cmd.lanes_to_bytes(*cme.cm_encode(model, *packed))
 
 
 def parse_block_payload(data: bytes, offset: int
@@ -198,3 +213,74 @@ def prepare_payload(pre, payload: bytes) -> Tuple[bytes, bool]:
     if pre.transform == 0 and pre.e8e9:
         return native.e8e9_transform(payload), False
     return payload, False
+
+
+def assemble_block(model: Model, coded: bytes, name: bytes,
+                   comment: bytes) -> bytes:
+    """Wrap a coded segment body in the standard tagged block/segment
+    framing with no stored SHA-1 (mirror of the native tzc_compress_block
+    writer)."""
+    return b"".join((TAG, b"zPQ", bytes([1 if model.n else 2, 1]),
+                     model.header_bytes(), b"\x01", name, b"\x00", comment,
+                     b"\x00\x00", coded, b"\x00\x00\x00\x00\xfe\xff"))
+
+
+def encode_jidac_blocks(model: Model, pre, jobs: Iterable, date: int,
+                        jdc_name, device: torch.device, max_job: int,
+                        verify: bool = False, journal=None
+                        ) -> Iterator[bytes]:
+    """Compress jidac d-block jobs as lanes of the CM encode kernel on
+    ``device``; yields the framed blocks in job order.
+
+    Adaptive store runs per job with the host path's decision function
+    (``prepare_payload``), so device adds and host adds of the same tree
+    write the same archive bytes: store-chosen jobs become native store
+    blocks, the rest are coded as lanes. A launch goes out as soon as the
+    pending lanes fill ``lanes_per_launch``, sized once for a job of
+    ``max_job`` raw bytes (the largest the planner makes), which bounds the
+    payloads held in memory. ``journal`` (``jidac.add.ResumeJournal``)
+    supplies blocks coded by an interrupted run and records new ones."""
+    from ..jidac.add import _STORE_MODEL, job_bytes, verify_payload
+    blob = model.pcomp_bytes()
+    prefix = (b"\x01" + blob) if blob else b"\x00"
+    max_payload = len(prefix) + max_job + OUT_SLACK
+    step = lanes_per_launch(model, max_payload + cme.lane_cap(max_payload),
+                            device)
+    pending: List[Tuple[object, Optional[bytes], int]] = []
+    payloads: List[bytes] = []
+
+    def flush() -> Iterator[bytes]:
+        coded = iter(encode_streams(model, payloads, device)
+                     if payloads else [])
+        for job, block, raw_len in pending:
+            if block is None:
+                block = assemble_block(
+                    model, next(coded), jdc_name(date, "d", job.first_frag),
+                    b"%d jDC\x01" % raw_len)
+                if journal is not None:
+                    journal.put(job, block)
+            yield block
+        pending.clear()
+        payloads.clear()
+
+    for job in jobs:
+        block = journal.get(job) if journal is not None else None
+        raw_len = 0
+        if block is None:
+            raw = job_bytes(job)
+            raw_len = len(raw)
+            payload, store = prepare_payload(pre, raw)
+            if store:
+                block = native.compress_block(
+                    _STORE_MODEL, raw, jdc_name(date, "d", job.first_frag),
+                    b"%d jDC\x01" % raw_len)
+                if journal is not None:
+                    journal.put(job, block)
+            else:
+                if verify:
+                    verify_payload(model, pre, raw, payload, job.first_frag)
+                payloads.append(prefix + payload)
+        pending.append((job, block, raw_len))
+        if len(payloads) >= step:
+            yield from flush()
+    yield from flush()
