@@ -5,22 +5,32 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's four CUDA kernels (``zpaqfranz_tpu_torch/csrc/*.cu``,
+It builds the port's six CUDA sources (``zpaqfranz_tpu_torch/csrc/*.cu``,
 one ``nvcc`` each, all started together, into
-``zpaqfranz_tpu_torch/build/``), holds each kernel bit-exact against its
-plain PyTorch version, holds the CM decode and encode kernels against the
-native host engine, then drives the port's main path on the card at -m4
-(16 MiB blocks), -m3 and -m5: ``add`` writes a seeded corpus as a jidac
-archive through the CM encode kernel, byte-identical to the host engine's
-``add`` of the same tree and date; ``extract`` restores it through the CM
-decode kernel; ``verify_archive`` checks every fragment through the SHA-1
-kernel; ``sum -sha1`` and ``sum -sha256`` hash the corpus through the SHA-1
-and SHA-256 kernels; and a flipped byte inside a d block must raise
-``ExtractError``. Scratch files go to ``build/smoke/`` and are removed at
-the end.
+``zpaqfranz_tpu_torch/build/``) with their eleven kernels, and holds each
+kernel bit-exact against its plain PyTorch version: the SHA-1, SHA-256 and
+CM decode and encode kernels on the checks' own lanes (the CM kernels also
+against the native host engine), the seven table-access microbenchmark
+kernels (``experiments/mb_access.py`` A-E, ``experiments/mb_vmem_probe.py``
+P1, P2) at every shape their scripts time, on the scripts' inputs and on
+seeded random tables and indices of the same shapes. Then it drives the
+port's paths on the card. The archive path at -m4 (16 MiB blocks), -m3 and -m5: ``add``
+writes a seeded corpus as a jidac archive through the CM encode kernel,
+byte-identical to the host engine's ``add`` of the same tree and date;
+``extract`` restores it through the CM decode kernel; ``verify_archive``
+checks every fragment through the SHA-1 kernel; ``sum -sha1`` and ``sum
+-sha256`` hash the corpus through the SHA-1 and SHA-256 kernels; and a
+flipped byte inside a d block must raise ``ExtractError``. The
+measurement path: the two microbenchmark entry points' ``main()``, and the
+device bench's whole lane ladder (SHA-1 lanes, then CM encode and decode
+at -m3 x 256 and x 1024 lanes and "4.0" x 8 and x 32, every lane equal to
+the host engine's coded stream and decoded back to its payload). Every
+kernel must have launched on its path. Scratch files go to
+``build/smoke/`` and are removed at the end.
 
-Output: per-phase lines, then one JSON line of kernel measurements, the
-card's name and power limit, and last ``{"ok": true, "device": ...}``.
+Output: per-phase lines, then one JSON line of kernel measurements (in the
+order: SHA-1, SHA-256, CM decode, CM encode, A-E, P1, P2), the card's name
+and power limit, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero; so does a machine without a CUDA card, or a
 directory that does not hold the repository.
 """
@@ -81,6 +91,35 @@ HASH_MAX = 256 << 10
 CM_PLAIN_SIZES = (30, 70, 110, 160)
 CM_NATIVE_LANES = (("4", (8 << 10, 24 << 10, 48 << 10, 64 << 10)),
                    ("5", (16 << 10, 32 << 10)))
+
+# table-access microbenchmark kernels: smoke name, module, wrapper key, the
+# TPU kernel it replaces
+MICRO = (("mb_gather", "mb_access", "gather", "experiments/mb_access.py:47"),
+         ("mb_onehot", "mb_access", "onehot", "experiments/mb_access.py:83"),
+         ("mb_selwrite", "mb_access", "selwrite",
+          "experiments/mb_access.py:121"),
+         ("mb_lane_loop", "mb_access", "lane_loop",
+          "experiments/mb_access.py:160"),
+         ("mb_dma", "mb_access", "dma", "experiments/mb_access.py:198"),
+         ("lane_rw_probe", "mb_vmem_probe", "lane_rw",
+          "experiments/mb_vmem_probe.py:32"),
+         ("lut_probe", "mb_vmem_probe", "lut",
+          "experiments/mb_vmem_probe.py:68"))
+# 32-bit integer instructions per dependent access, counted loosely from
+# csrc/mb_access.cu and csrc/mb_vmem_probe.cu (loads and stores not
+# counted): A the index add, floor modulo (%, sign fix-up), address and
+# sum, 6; B and C the per-row compare, select, add or store and loop step,
+# 4 per row; D four __vadd4, a mask, an add and the address, 8; E one per
+# 16-byte cp.async and the wait, read and add; P1 the index's multiply and
+# two adds, the floor modulo, the address, four row adds and the
+# accumulator's add and mask, 14; P2 the add, floor modulo, add and mask,
+# 7. Filling a shared-memory column costs about 4 per element.
+MICRO_OPS_PER_ACCESS = {"gather": 6, "onehot": 4, "selwrite": 4,
+                        "lane_loop": 8, "lane_rw": 14, "lut": 7}
+MICRO_OPS_PER_ELEMENT = 4
+# P1 and P2 at their script's shapes: L = 64 lanes, ITERS = 64
+PROBE_L = 64
+PROBE_ITERS = 64
 
 ALL_COMPONENTS_CFG = """
 comp 9 16 0 0 10
@@ -150,6 +189,28 @@ def wall_ms(torch, fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def kernel_ms(torch, fn, args, kernel: str, reps: int = 5) -> float:
+    """Mean device milliseconds of the CUDA kernel named ``kernel`` per
+    call of ``fn(*args)``, over ``reps`` calls after a warm-up, from
+    ``torch.profiler``: the kernel alone, without the wrapper's checks and
+    allocations around it. Fails unless each call launched it once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if kernel in e.key and e.device_time_total > 0]
+    check(len(hits) == 1 and hits[0].count == reps,
+          f"the profiler saw {[(e.key, e.count) for e in hits]} for "
+          f"{kernel}, want {reps} launches")
+    return hits[0].device_time_total / reps / 1e3
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -470,6 +531,199 @@ def check_cm_encode(torch, np, dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# table-access microbenchmark kernels
+
+def micro_cases(torch, dev, kind: str):
+    """``(label, run, plain, inputs)`` for every shape the scripts time
+    with kernel ``kind``: bench_A .. bench_E's, and P1 / P2 at L = 64,
+    ITERS = 64 on the script's own inputs."""
+    from zpaqfranz_tpu_torch.experiments import mb_access as mb
+    from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
+
+    if kind == "lane_rw":
+        tab = torch.zeros((PROBE_L, mp.SW), dtype=torch.int32, device=dev)
+        yield (f"L={PROBE_L} ITERS={PROBE_ITERS}",
+               lambda t: mp.lane_rw_probe(t, PROBE_ITERS),
+               lambda t: mp.lane_rw_plain(t, PROBE_ITERS), (tab,))
+    elif kind == "lut":
+        lut = torch.arange(mp.LUT, dtype=torch.int32, device=dev)
+        yield (f"L={PROBE_L} ITERS={PROBE_ITERS}",
+               lambda t: mp.lut_probe(t, PROBE_L, PROBE_ITERS),
+               lambda t: mp.lut_plain(t, PROBE_L, PROBE_ITERS), (lut,))
+    else:
+        for label, run, args, _ in mb.cases(kind, dev):
+            yield label, run, run.plain, args
+
+
+def micro_work(kind: str, args) -> tuple:
+    """``(bytes, operations, chain)`` of one call: the bytes it must move
+    (A-C read the whole table, which their design stages in shared memory
+    and which B and C touch row by row; D, E and P1 only the rows they
+    touch; P2 its LUT), the integer instructions (MICRO_OPS_PER_ACCESS) and
+    the length of the longest chain of dependent accesses."""
+    from zpaqfranz_tpu_torch.experiments import mb_access as mb
+    from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
+
+    per = MICRO_OPS_PER_ACCESS.get(kind, 0)
+    rounds = mb.ITERS // 8
+    if kind in ("gather", "onehot", "selwrite"):
+        tab, _ = args
+        S, n = tab.shape
+        rows = 1 if kind == "gather" else S
+        return (tab.numel() * tab.element_size() + 8 * n,
+                n * mb.ITERS * rows * per + S * n * MICRO_OPS_PER_ELEMENT,
+                mb.ITERS)
+    if kind in ("lane_loop", "dma"):
+        idx, tab = args
+        n, S = tab.shape
+        width = dict(mb.D_SHAPES if kind == "lane_loop" else mb.E_SHAPES)[S]
+        moved = (2 if kind == "lane_loop" else 1) * n * width
+        ops = per if kind == "lane_loop" else width // 16 + 3
+        return moved + 4 * n + 4, n * rounds * ops, rounds
+    if kind == "lane_rw":
+        probes = PROBE_L * PROBE_ITERS
+        return 2 * 16 * probes + 4, probes * per, probes
+    steps = PROBE_ITERS * 8
+    return 4 * mp.LUT + 4 * PROBE_L, PROBE_L * steps * per, steps
+
+
+def micro_random(torch, dev, kind: str, args, seed: int) -> list:
+    """``(label, inputs)`` of seeded random inputs with the shapes and types
+    of ``args``: random tables, and random int32 start indices (A-C) or
+    random row offsets (D, E), so that a kernel that reads the wrong lane,
+    row or address cannot agree with its plain version. The scripts' own
+    inputs are all-zero tables (C, D, E) or give sums that do not depend on
+    the row (D). D's offsets are drawn at 16-byte boundaries (its 16-byte
+    path) and at any byte (its byte path); E's at 16-byte boundaries only."""
+    from zpaqfranz_tpu_torch.experiments import mb_access as mb
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(shape, lo=-2**31, hi=2**31):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def like(t):
+        if t.dtype == torch.uint8:
+            return torch.randint(0, 256, t.shape, generator=g, device=dev,
+                                 dtype=torch.uint8)
+        return ints(t.shape)
+
+    if kind in ("gather", "onehot", "selwrite"):
+        tab, idx = args
+        return [("random table and starts", (like(tab), ints(idx.shape)))]
+    if kind in ("lane_loop", "dma"):
+        idx, tab = args
+        n, S = tab.shape
+        width = dict(mb.D_SHAPES if kind == "lane_loop" else mb.E_SHAPES)[S]
+        rnd = like(tab)
+        out = [("random table, aligned rows",
+                (ints((n, 1), 0, (S - width) // 16 + 1) * 16, rnd))]
+        if kind == "lane_loop":
+            out.append(("random table, unaligned rows",
+                        (ints((n, 1), 0, S - width + 1), rnd)))
+        return out
+    return [("random table", (like(args[0]),))]
+
+
+def check_micro(torch, dev) -> list:
+    """Hold the seven table-access kernels bit-exact against their plain
+    versions on the card at every shape their scripts time, on the
+    scripts' inputs and on seeded random inputs of the same shapes
+    (``micro_random``); a second call must agree and leave the inputs
+    unchanged. Times each kernel alone (``kernel_ms``), the whole call
+    (CUDA events) and the plain version (host clock) on the scripts'
+    inputs; a kernel's row sums its shapes."""
+    from zpaqfranz_tpu_torch.device import seconds
+
+    out = []
+    for k, (name, module, kind, replaces) in enumerate(MICRO):
+        err = 0
+        ms = plain_ms = 0.0
+        nbytes = ops = 0
+        cases = micro_cases(torch, dev, kind)
+        for seed, (label, run, plain, args) in enumerate(cases, 16 * k):
+            variants = [("script's inputs", args)] + micro_random(
+                torch, dev, kind, args, seed)
+            for what, inputs in variants:
+                before = [a.clone() for a in inputs]
+                got = run(*inputs)
+                again = run(*inputs)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = plain(*inputs)
+                torch.cuda.synchronize()
+                p_ms = (time.perf_counter() - t0) * 1e3
+                err = max(err, int((got.long() - want.long()).abs().max()))
+                check(torch.equal(got, want) and torch.equal(got, again),
+                      f"{name} differs from its plain version [{label}, "
+                      f"{what}]")
+                check(all(torch.equal(a, b) for a, b in zip(inputs, before)),
+                      f"{name} changed its inputs [{label}, {what}]")
+                if inputs is not args:
+                    log(f"{name} [{label}, {what}]: identical to plain "
+                        f"({p_ms:.1f} ms)")
+                    continue
+                k_ms = kernel_ms(torch, run, args, f"{kind}_kernel")
+                call_ms = seconds(run, *args) * 1e3
+                b, o, chain = micro_work(kind, args)
+                b_ms, b_by = bound(b, o)
+                log(f"{name} [{label}]: kernel {k_ms:.4f} ms = "
+                    f"{k_ms * 1e6 / chain:.1f} ns per dependent access "
+                    f"({chain} in the chain; the whole call {call_ms:.4f} "
+                    f"ms), bound {b_ms:.5f} ms ({b_by}), plain {p_ms:.1f} "
+                    f"ms; identical")
+                ms += k_ms
+                plain_ms += p_ms
+                nbytes += b
+                ops += o
+        b_ms, b_by = bound(nbytes, ops)
+        out.append({"name": name, "route": "cuda",
+                    "source": f"zpaqfranz_tpu_torch/csrc/{module}.cu",
+                    "replaces": replaces, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
+    return out
+
+
+def measurement_path(torch, dev) -> dict:
+    """Run the two microbenchmark entry points and the device bench's whole
+    ladder on the card. Returns each kernel's launches on its own path:
+    the counts are set to 0 just before each path and read just after."""
+    from zpaqfranz_tpu_torch.experiments import mb_access as mb
+    from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
+    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+    from zpaqfranz_tpu_torch.ops import sha1
+    from zpaqfranz_tpu_torch.parallel import device_bench
+
+    counts = {}
+    for mod in (mb, mp):
+        for k in mod.launches:
+            mod.launches[k] = 0
+        t0 = time.perf_counter()
+        check(mod.main([]) == 0, f"{mod.__name__}.main failed")
+        torch.cuda.synchronize()
+        log(f"  ({mod.__name__}.main took {time.perf_counter() - t0:.1f} s, "
+            f"launches {mod.launches})")
+        counts.update(mod.launches)
+
+    sha1.launches = cme.launches = cmd.launches = 0
+    t0 = time.perf_counter()
+    res = device_bench.run_ladder(budget_s=900.0, device=dev)
+    check(len(res) == len(device_bench.LADDER) and "stopped" not in res,
+          f"the ladder stopped: {res.get('stopped')}")
+    log(f"ladder: {len(res)} stages in {time.perf_counter() - t0:.1f} s, "
+        f"launches: sha1 {sha1.launches}, cm_encode {cme.launches}, "
+        f"cm_decode {cmd.launches}; every lane equals the host engine's "
+        f"coded stream and decodes to its payload")
+    check(sha1.launches > 0 and cme.launches > 0 and cmd.launches > 0,
+          "the ladder did not launch the SHA-1 and CM kernels")
+    for name, st in res.items():
+        log(device_bench.stage_line(name, st))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # main path
 
 def make_corpus(np, root: pathlib.Path, nbytes: int, seed: int) -> None:
@@ -670,6 +924,10 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"  ({kernels[-1]['name']} checks took "
             f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    kernels += check_micro(torch, dev)
+    log(f"  (table-access kernel checks took {time.perf_counter() - t0:.1f} "
+        f"s)")
 
     if WORK.exists():
         shutil.rmtree(WORK)
@@ -686,9 +944,13 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     counts = {name: mod.launches for name, mod in modules.items()}
     log(f"main path launches: {counts}")
+    t0 = time.perf_counter()
+    micro_counts = measurement_path(torch, dev)
+    log(f"  (measurement path took {time.perf_counter() - t0:.1f} s)")
+    counts.update({name: micro_counts[kind] for name, _, kind, _ in MICRO})
     for k in kernels:
         k["launches"] = counts[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+        check(k["launches"] > 0, f"{k['name']} never launched on its path")
     for r in runs:
         log(f"-m{r['level']}: {r['bytes']} bytes, a {r['a_s']:.2f} s on the "
             f"card ({r['enc_KBps']:.2f} KB/s per encode lane), "

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-slices (add, extract and verify) on the card. Every test here needs a CUDA
-card and skips without one. This file imports no JAX, so it also runs where the
-reference's JAX is not installed:
+slices (add, extract, verify and the device bench) on the card. Every test
+here needs a CUDA card and skips without one. This file imports no JAX, so
+it also runs where the reference's JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
 """
@@ -23,11 +23,14 @@ from zpaqfranz_tpu.zpaql.compiler import compile_config as ref_compile
 
 from chip_smoke import ALL_COMPONENTS_CFG
 from zpaqfranz_tpu_torch import convert
+from zpaqfranz_tpu_torch.experiments import mb_access as mb
+from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
 from zpaqfranz_tpu_torch.jidac.add import add
 from zpaqfranz_tpu_torch.jidac.extract import extract, verify_archive
 from zpaqfranz_tpu_torch.jidac.index import read_archive
 from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
 from zpaqfranz_tpu_torch.ops import sha1, sha256
+from zpaqfranz_tpu_torch.parallel import device_bench
 from zpaqfranz_tpu_torch.parallel.engine import parse_block_payload
 
 pytestmark = pytest.mark.cuda
@@ -252,3 +255,74 @@ def test_slice_on_card(card, tmp_path, monkeypatch, method):
                                                   use_device=False)
     assert cmd.launches == before[0] + (method != "0")
     assert sha1.launches == before[1] + 1
+
+
+def _kernel_matches_plain(run, key, *args):
+    """``run`` on the card equals its plain version, launches once per
+    call, agrees with itself and leaves its inputs unchanged."""
+    before = [a.clone() for a in args]
+    launches = mb.launches if key in mb.launches else mp.launches
+    n = launches[key]
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert launches[key] == n + 1
+    assert torch.equal(got, run.plain(*args))
+    assert torch.equal(run(*args), got)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+
+
+@pytest.mark.parametrize("kind", ["gather", "onehot", "selwrite"])
+@pytest.mark.parametrize("S,dtype", [(300, torch.uint8), (96, torch.int32),
+                                     (8192, torch.int32)])
+def test_column_kernels_match_plain(card, monkeypatch, kind, S, dtype):
+    """A, B, C on random tables (int32 at S = 8192 splits the lanes over
+    19 blocks) with random int32 start indices, ITERS = 32."""
+    monkeypatch.setattr(mb, "ITERS", 32)
+    g = torch.Generator().manual_seed(S)
+    tab = torch.randint(-2**31, 2**31, (S, mb.L), generator=g,
+                        dtype=torch.int64)
+    tab = (tab & 0xFF if dtype == torch.uint8 else tab).to(dtype)
+    idx = torch.randint(-2**31, 2**31, (1, mb.L), generator=g,
+                        dtype=torch.int64).to(torch.int32)
+    mk = {"gather": mb.mk_gather_kernel, "onehot": mb.mk_onehot_kernel,
+          "selwrite": mb.mk_selwrite_kernel}[kind]
+    _kernel_matches_plain(mk(S, dtype), kind, tab.to(card), idx.to(card))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_lane_loop_and_dma_kernels_match_plain(card, aligned):
+    """D on rows at 16-byte boundaries (its 16-byte path) and at any offset
+    (its byte path), with 200 lanes over two blocks; E on aligned rows."""
+    g = torch.Generator().manual_seed(3)
+    S, n = 1024, 200
+    tab = torch.randint(0, 256, (n, S), generator=g, dtype=torch.uint8)
+    idx = torch.randint(0, S - 64, (n, 1), generator=g).to(torch.int32)
+    if aligned:
+        idx = idx // 16 * 16
+        _kernel_matches_plain(mb.mk_dma_kernel(S, 64), "dma", idx.to(card),
+                              tab.to(card))
+    _kernel_matches_plain(mb.mk_lane_loop_kernel(S, 16), "lane_loop",
+                          idx.to(card), tab.to(card))
+
+
+def test_probe_kernels_match_plain(card):
+    g = torch.Generator().manual_seed(4)
+    tab = torch.randint(-2**31, 2**31, (8, 4096), generator=g,
+                        dtype=torch.int64).to(torch.int32).to(card)
+    lut = torch.randint(-2**31, 2**31, (3000,), generator=g,
+                        dtype=torch.int64).to(torch.int32).to(card)
+    p1 = lambda t: mp.lane_rw_probe(t, 16)           # noqa: E731
+    p1.plain = lambda t: mp.lane_rw_plain(t, 16)
+    p2 = lambda t: mp.lut_probe(t, 200, 4)           # noqa: E731
+    p2.plain = lambda t: mp.lut_plain(t, 200, 4)
+    _kernel_matches_plain(p1, "lane_rw", tab)
+    _kernel_matches_plain(p2, "lut", lut)
+
+
+def test_ladder_codec_stage_on_card(card):
+    """-m3 at 64 lanes of 512 bytes (2 blocks of the CM kernels): every
+    lane codes as the host engine does and decodes back."""
+    before = (cme.launches, cmd.launches)
+    st = device_bench.run_ladder(ladder=[("codec", "3", 64, 512)])
+    assert st["cm_3_L64"]["ok"]
+    assert cme.launches == before[0] + 2 and cmd.launches == before[1] + 2

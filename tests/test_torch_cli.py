@@ -53,3 +53,35 @@ def test_sum_lanes_print_reference_lines(tree, capsys, algo):
     if not torch.cuda.is_available():
         # without -notpu, SHA-1 and SHA-256 take the card: none, exit 2
         assert cli.main(["sum", "d", f"-{algo}"]) == 2
+
+
+def test_list_and_test_warn_on_a_truncated_transaction(tmp_path, monkeypatch,
+                                                       capsys):
+    """``t`` says "all OK" only when the index scan skipped nothing, and
+    ``l`` warns and exits 1 on a truncated trailing transaction, as ``t``
+    does (the reference's cmd_test prints "all OK" before its warnings, and
+    its cmd_list exits 0)."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "src").mkdir()
+    (tmp_path / "src" / "a").write_bytes(b"hello " * 100)
+    assert cli.main(["a", "arc", "src", "-notpu"]) == 0
+    first = (tmp_path / "arc.zpaq").stat().st_size
+    (tmp_path / "src" / "b").write_bytes(b"world " * 200)
+    assert cli.main(["a", "arc", "src", "-notpu"]) == 0
+    data = (tmp_path / "arc.zpaq").read_bytes()
+    (tmp_path / "cut.zpaq").write_bytes(data[:(first + len(data)) // 2])
+    capsys.readouterr()
+    assert cli.main(["t", "arc", "-notpu"]) == 0
+    out, err = capsys.readouterr()
+    assert out.rstrip().endswith("all OK") and err == ""
+    assert cli.main(["l", "arc"]) == 0
+    out, err = capsys.readouterr()
+    assert "2 files" in out and err == ""
+    assert cli.main(["t", "cut", "-notpu"]) == 1
+    out, err = capsys.readouterr()
+    assert "all OK" not in out and "OK with 1 warning(s)" in out
+    assert err == "warning: incomplete (truncated) trailing transaction " \
+                  "ignored\n"
+    assert cli.main(["l", "cut"]) == 1
+    out, err = capsys.readouterr()
+    assert "1 files" in out and "truncated" in err

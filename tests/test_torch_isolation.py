@@ -41,8 +41,10 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
     res = _run(["-c", PROBE], ROOT)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    for mod in ("cm_model", "cm_decode", "cm_encode", "sha1", "sha256"):
-        assert f"zpaqfranz_tpu_torch.ops.{mod}" in out["imported"]
+    for mod in ("ops.cm_model", "ops.cm_decode", "ops.cm_encode", "ops.sha1",
+                "ops.sha256", "experiments.mb_access",
+                "experiments.mb_vmem_probe", "parallel.device_bench"):
+        assert f"zpaqfranz_tpu_torch.{mod}" in out["imported"]
     assert out["bad"] == []
 
 

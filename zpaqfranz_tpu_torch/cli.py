@@ -4,14 +4,14 @@ Positional grammar matching the reference (man/zpaqfranz.pod:75-131):
 
     python -m zpaqfranz_tpu_torch.cli <command> <archive>[.zpaq] [files...] [-switches]
 
-Commands: a add, x e extract, l ls list, t test, sum hash.
+Commands: a add, x e extract, l ls list, t test, sum hash, b bench.
 
 Switches: -mN method, -to DIR, -until N|date, -fragment N, -threads N,
 -key PW, -only PAT, -not PAT, -summary, -test, -tpu / -notpu, and for
 ``sum`` the hash name (-sha1 default, -sha256, -md5, -xxhash64, ...).
-``a -m3..-m5``, ``x``, ``t`` and ``sum -sha1/-sha256`` run on the CUDA card
-unless ``-notpu`` asks for the host engine (``-tpu`` is accepted and
-changes nothing).
+``a -m3..-m5``, ``x``, ``t``, ``sum -sha1/-sha256`` and the device stages
+of ``b`` run on the CUDA card unless ``-notpu`` asks for the host engine
+(``-tpu`` is accepted and changes nothing).
 Exit codes follow the reference contract: 0 ok, 1 warnings, 2 errors.
 """
 
@@ -198,12 +198,34 @@ def cmd_list(archive, files, sw) -> int:
             print(f"- {pretty} {_fmt_size(d.size):>15}  {shown}")
         total += max(d.size, 0)
     stored = data.size()
-    if csv:
-        return 0
-    print(f"{len(names):,} files, {_fmt_size(total)} bytes "
-          f"-> {_fmt_size(stored)} stored"
-          + (f" ({stored * 100.0 / total:.1f}%)" if total else ""))
-    return 0
+    warnings = _damage_warnings(jd)
+    if not csv:
+        print(f"{len(names):,} files, {_fmt_size(total)} bytes "
+              f"-> {_fmt_size(stored)} stored"
+              + (f" ({stored * 100.0 / total:.1f}%)" if total else ""))
+    return _warn(warnings)
+
+
+def _damage_warnings(jd) -> List[str]:
+    """What the error-isolating index scan skipped: a truncated trailing
+    transaction, damaged blocks (reference: "Incomplete transaction
+    ignored", a warning)."""
+    out = []
+    if jd.incomplete:
+        out.append("warning: incomplete (truncated) trailing transaction "
+                   "ignored")
+    if jd.errors:
+        out.append(f"warning: {jd.errors} damaged block(s) skipped "
+                   f"(first at offset {jd.first_error})")
+    return out
+
+
+def _warn(warnings: List[str]) -> int:
+    """Print the warnings to stderr; the exit code of the reference
+    contract (man:135): 0 ok, 1 warning."""
+    for w in warnings:
+        print(w, file=sys.stderr)
+    return 1 if warnings else 0
 
 
 def cmd_test(archive, files, sw) -> int:
@@ -215,23 +237,14 @@ def cmd_test(archive, files, sw) -> int:
         use_device=_use_device(sw))
     dt = time.time() - t0
     usize = sum(b.usize for b in jd.block)
+    # the surviving data verified, but "all OK" must not hide what the scan
+    # skipped
+    warnings = _damage_warnings(jd)
     print(f"tested {nblocks} blocks, {nfrags} fragments, "
-          f"{_fmt_size(usize)} bytes in {dt:.2f}s: all OK")
-    # exit-code contract (reference man:135): 0 ok, 1 warning, 2 error.
-    # A truncated trailing transaction or damaged blocks were *skipped*
-    # by the error-isolating scan — the surviving data verified OK, but
-    # "all OK" alone would hide the damage (reference prints "Incomplete
-    # transaction ignored" and flags a warning).
-    warn = 0
-    if jd.incomplete:
-        print("warning: incomplete (truncated) trailing transaction "
-              "ignored", file=sys.stderr)
-        warn = 1
-    if jd.errors:
-        print(f"warning: {jd.errors} damaged block(s) skipped "
-              f"(first at offset {jd.first_error})", file=sys.stderr)
-        warn = 1
-    return warn
+          f"{_fmt_size(usize)} bytes in {dt:.2f}s: "
+          + (f"OK with {len(warnings)} warning(s)" if warnings
+             else "all OK"))
+    return _warn(warnings)
 
 
 def _hash_one(algo: str, data: bytes) -> str:
@@ -337,16 +350,59 @@ def cmd_sum(archive, files, sw) -> int:
     return 0
 
 
+def cmd_bench(archive, files, sw) -> int:
+    """Quick host benchmark (the reference's 'b' franzomips analog), then
+    the device ladder's first two stages on the card unless ``-notpu``.
+
+    Each host primitive is warmed once, then timed best-of-3 over a fixed
+    byte budget."""
+    from . import native
+    from .codec.methods import make_model
+
+    def best_of(fn, reps: int = 3) -> float:
+        fn()                         # warm caches / allocate tables
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    rng_data = (b"the quick brown fox jumps over the lazy dog " * 3000)
+    model, _ = make_model("x4.0ci1")
+    sha_t = best_of(lambda: native.sha1(rng_data))
+    lz_t = best_of(lambda: native.lz77_encode(rng_data))
+    cm_t = best_of(
+        lambda: native.compress_block(model, rng_data[:30000], b"b", b"c"))
+    mb = len(rng_data) / 1e6
+    print(f"sha1 {mb / sha_t:7.1f} MB/s | lz77 {mb / lz_t:7.1f} MB/s | "
+          f"cm-encode {0.03 / cm_t:7.2f} MB/s | "
+          f"tpu-franzomips {int(mb / sha_t + mb / lz_t + 3000 * 0.03 / cm_t)}")
+    if not _use_device(sw):
+        return 0
+    from .parallel.device_bench import bootstrap_calibration, stage_line
+    print("device bench: SHA-1 lanes, then -m3 at 256 lanes of 4 KiB, on the "
+          "card beside the host engine", flush=True)
+    for name, st in bootstrap_calibration().items():
+        print(stage_line(name, st))
+    return 0
+
+
 COMMANDS = {
     "a": cmd_add, "add": cmd_add,
     "x": cmd_extract, "e": cmd_extract, "extract": cmd_extract,
     "l": cmd_list, "ls": cmd_list, "list": cmd_list,
     "t": cmd_test, "test": cmd_test,
     "sum": cmd_sum, "hash": cmd_sum,
+    "b": cmd_bench, "bench": cmd_bench,
 }
 
 # commands whose first positional is a plain file/dir path, not an archive
 PLAIN_PATH_COMMANDS = {"sum", "hash"}
+
+# commands that need no positional at all (reference: `zpaqfranz b` runs
+# bare, man/zpaqfranz.pod:75-78)
+NO_ARCHIVE_COMMANDS = {"b", "bench"}
 
 
 class _Progress:
@@ -406,7 +462,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               file=sys.stderr)
         return 2
     plain = cmd in PLAIN_PATH_COMMANDS
-    if archive is None and not plain:
+    if archive is None and not plain and cmd not in NO_ARCHIVE_COMMANDS:
         print("missing archive name", file=sys.stderr)
         return 2
     # -out FILE redirects stdout; -appendoutput appends
@@ -419,7 +475,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                           "a" if "appendoutput" in sw else "w")
     t0 = time.time()
     try:
-        rc = fn(archive if plain else _archive_path(archive), files, sw)
+        arg0 = archive if plain else (_archive_path(archive)
+                                      if archive else None)
+        rc = fn(arg0, files, sw)
         if "stat" in sw:
             # greppable stats lines (reference |STAT|, CHANGELOG.md:83-84)
             print(f"|STAT| cmd={cmd} rc={rc} seconds={time.time() - t0:.3f}")

@@ -96,12 +96,13 @@ extern "C" {
 int cm_decode_threads(int n, int hlen) { return lane_threads(n, hlen); }
 
 int cm_decode_launch(const void* comps, const void* off8, const void* off32,
-                     int n, const void* hcomp, int hlen, int hh, int hm,
-                     const void* lut, const void* in, const void* in_off,
-                     const void* in_len, void* a8, long long s8, void* a32,
-                     long long s32, void* hmem, void* mmem, void* out,
-                     const void* out_off, const void* out_cap, void* out_len,
-                     void* status, int L, int threads, void* stream) {
+                     long long n, const void* hcomp, long long hlen,
+                     long long hh, long long hm, const void* lut,
+                     const void* in, const void* in_off, const void* in_len,
+                     void* a8, long long s8, void* a32, long long s32,
+                     void* hmem, void* mmem, void* out, const void* out_off,
+                     const void* out_cap, void* out_len, void* status,
+                     long long L, long long threads, void* stream) {
   return launch_lanes(cm_decode_kernel, comps, off8, off32, n, hcomp, hlen,
                       hh, hm, lut, in, in_off, in_len, a8, s8, a32, s32, hmem,
                       mmem, out, out_off, out_cap, out_len, status, L,

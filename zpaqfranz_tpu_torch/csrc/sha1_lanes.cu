@@ -111,12 +111,13 @@ __global__ void sha1_lanes_kernel(const u8* __restrict__ data,
 
 extern "C" int sha1_lanes_launch(const void* data, const void* off,
                                  const void* len, const void* order,
-                                 void* out, int n, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                                 void* out, long long n,
+                                 void* stream) {
+  if (n < 1 || n > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = int((n + threads - 1) / threads);
   sha1_lanes_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const u8*)data, (const i64*)off, (const i64*)len, (const i64*)order,
-      (u32*)out, n);
+      (u32*)out, int(n));
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,8 @@ the archive functions.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import time
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -32,3 +33,28 @@ def resolve(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def seconds(fn: Callable, *args, reps: int = 5) -> float:
+    """Seconds per call of ``fn(*args)``, on the device of its first tensor
+    argument: on the card the mean of ``reps`` calls timed with CUDA events
+    after a warm-up call, on the CPU the best of ``reps`` after a warm-up
+    call."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn(*args)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps / 1e3
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(*args)
+        best = min(best, time.perf_counter() - t0)
+    return best

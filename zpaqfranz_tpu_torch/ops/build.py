@@ -21,13 +21,16 @@ import threading
 import time
 from typing import Dict, Iterable, List
 
+import torch
+
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 
 #: kernel name -> source file under csrc/
 SOURCES = {"sha1_lanes": "sha1_lanes.cu", "sha256_lanes": "sha256_lanes.cu",
-           "cm_decode": "cm_decode.cu", "cm_encode": "cm_encode.cu"}
+           "cm_decode": "cm_decode.cu", "cm_encode": "cm_encode.cu",
+           "mb_access": "mb_access.cu", "mb_vmem_probe": "mb_vmem_probe.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -99,3 +102,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _LIBS[name] = lib
         return lib
+
+
+def call(name: str, symbol: str, device: torch.device, *args) -> None:
+    """Launch the C entry ``symbol`` of kernel library ``name`` on the
+    current stream of ``device``: every kernel wrapper launches through
+    here. Tensors pass as their data pointers, ints as ``long long``, and
+    the stream comes last; a CUDA error code other than 0 raises."""
+    fn = getattr(load(name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor)
+                   else ctypes.c_longlong for a in args] + [ctypes.c_void_p]
+    with torch.cuda.device(device):
+        rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+                  for a in args], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")

@@ -271,21 +271,13 @@ class LaneLaunch:
         threads = threads_fn(model.n, len(hcomp))
         if threads < 1:
             raise ValueError(f"model with {model.n} components does not fit")
-        self._fn = getattr(lib, f"{self.kernel}_launch")
-        self._fn.restype = ctypes.c_int
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        self._fn.argtypes = [P, P, P, I, P, I, I, I, P, P, P, P, P, LL, P, LL,
-                             P, P, P, P, P, P, P, I, I, P]
         t_comps, t_off8, t_off32, t_hcomp, t_lut = self._inputs[:5]
         a8, a32, hmem, mmem = self._state
         self._args = (
-            t_comps.data_ptr(), t_off8.data_ptr(), t_off32.data_ptr(),
-            model.n, t_hcomp.data_ptr(), len(hcomp), model.hh, model.hm,
-            t_lut.data_ptr(), src.data_ptr(), in_off.data_ptr(),
-            in_len.data_ptr(), a8.data_ptr(), lay.s8, a32.data_ptr(),
-            lay.s32, hmem.data_ptr(), mmem.data_ptr(), self.out.data_ptr(),
-            self.out_off.data_ptr(), out_cap.data_ptr(),
-            self.out_len.data_ptr(), self.status.data_ptr(), L, threads)
+            t_comps, t_off8, t_off32, model.n, t_hcomp, len(hcomp), model.hh,
+            model.hm, t_lut, src, in_off, in_len, a8, lay.s8, a32, lay.s32,
+            hmem, mmem, self.out, self.out_off, out_cap, self.out_len,
+            self.status, L, threads)
         self._ran = False
 
     def counted(self) -> None:
@@ -297,11 +289,7 @@ class LaneLaunch:
         if self._ran:
             raise RuntimeError(f"a prepared {self.kernel} launch runs once")
         self._ran = True
-        with torch.cuda.device(self.dev):
-            rc = self._fn(*self._args,
-                          torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.kernel} launch failed: CUDA error {rc}")
+        build.call(self.kernel, f"{self.kernel}_launch", self.dev, *self._args)
         self.counted()
         return self
 

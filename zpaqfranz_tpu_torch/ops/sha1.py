@@ -15,7 +15,6 @@ launch and the packing here serve the SHA-256 lane kernel too
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -138,15 +137,8 @@ def launch_lanes(kernel: str, nstate: int, data: torch.Tensor,
             or int((off + length).max()) > data.numel()):
         raise ValueError("a lane reaches outside data")
     order = torch.argsort(length, descending=True, stable=True)
-    fn = getattr(build.load(kernel), f"{kernel}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(data.device):
-        rc = fn(data.data_ptr(), off.data_ptr(), length.data_ptr(),
-                order.data_ptr(), out.data_ptr(), n,
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+    build.call(kernel, f"{kernel}_launch", data.device, data, off, length,
+               order, out, n)
     return out
 
 
