@@ -10,11 +10,14 @@ one ``nvcc`` each, all started together, into
 ``zpaqfranz_tpu_torch/build/``) with their eleven kernels, and holds each
 kernel bit-exact against its plain PyTorch version: the SHA-1, SHA-256 and
 CM decode and encode kernels on the checks' own lanes (the CM kernels also
-against the native host engine), the seven table-access microbenchmark
-kernels (``experiments/mb_access.py`` A-E, ``experiments/mb_vmem_probe.py``
-P1, P2) at every shape their scripts time, on the scripts' inputs and on
-seeded random tables and indices of the same shapes. Then it drives the
-port's paths on the card. The archive path at -m4 (16 MiB blocks), -m3 and -m5: ``add``
+against the native host engine, with each model's placement printed: G
+threads per lane, lanes per block, shared bytes; then one lane per level
+for its rate and a profiled breakdown of a bit), the seven table-access
+microbenchmark kernels (``experiments/mb_access.py`` A-E,
+``experiments/mb_vmem_probe.py`` P1, P2) at every shape their scripts
+time, on the scripts' inputs and on seeded random tables and indices of
+the same shapes. Then it drives the port's paths on the card. The
+archive path at -m4 (16 MiB blocks), -m3 and -m5: ``add``
 writes a seeded corpus as a jidac archive through the CM encode kernel,
 byte-identical to the host engine's ``add`` of the same tree and date;
 ``extract`` restores it through the CM decode kernel; ``verify_archive``
@@ -91,6 +94,15 @@ HASH_MAX = 256 << 10
 CM_PLAIN_SIZES = (30, 70, 110, 160)
 CM_NATIVE_LANES = (("4", (8 << 10, 24 << 10, 48 << 10, 64 << 10)),
                    ("5", (16 << 10, 32 << 10)))
+
+# one-lane CM encode rate at -m4 (16 MiB-block widths) of the earlier
+# design, one lane per thread: the yardstick of the group design (PERF.md)
+ONE_THREAD_M4_KBPS = 11.8
+# per-step costs on this card from the table-access microbenchmarks
+# (PERF.md): a dependent L2 access (P1) and a dependent shared-memory step
+# (P2), in ns
+L2_STEP_NS = 313.0
+SHARED_STEP_NS = 75.0
 
 # table-access microbenchmark kernels: smoke name, module, wrapper key, the
 # TPU kernel it replaces
@@ -193,9 +205,11 @@ def wall_ms(torch, fn) -> float:
 
 def kernel_ms(torch, fn, args, kernel: str, reps: int = 5) -> float:
     """Mean device milliseconds of the CUDA kernel named ``kernel`` per
-    call of ``fn(*args)``, over ``reps`` calls after a warm-up, from
+    launch, over ``reps`` calls of ``fn(*args)`` after a warm-up, from
     ``torch.profiler``: the kernel alone, without the wrapper's checks and
-    allocations around it. Fails unless each call launched it once."""
+    allocations around it. Fails unless the profiler saw that kernel alone
+    and at most once per call (its trace may drop a record of a long
+    kernel: the mean is over the launches it saw)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
@@ -207,10 +221,10 @@ def kernel_ms(torch, fn, args, kernel: str, reps: int = 5) -> float:
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages()
             if kernel in e.key and e.device_time_total > 0]
-    check(len(hits) == 1 and hits[0].count == reps,
+    check(len(hits) == 1 and 1 <= hits[0].count <= reps,
           f"the profiler saw {[(e.key, e.count) for e in hits]} for "
           f"{kernel}, want {reps} launches")
-    return hits[0].device_time_total / reps / 1e3
+    return hits[0].device_time_total / hits[0].count / 1e3
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -389,6 +403,30 @@ def cm_models() -> dict:
     return models
 
 
+def chain_floor_ns(model) -> float:
+    """Per-bit chain that the access costs give the CM kernels' design, for
+    reading beside the measured time, not a bound: one dependent L2 access
+    (phase (a)'s early reads), then one shared-memory step for phase (a)'s
+    table read, one per component of the combine on thread 0 (AVG, MIX2,
+    MIX, ISSE, SSE), and two for the coder's bit and the update."""
+    from zpaqfranz_tpu_torch.models import tables as T
+
+    combine = sum(cp[0] in (T.AVG, T.MIX2, T.MIX, T.ISSE, T.SSE)
+                  for cp in model.comps)
+    return L2_STEP_NS + SHARED_STEP_NS * (combine + 3)
+
+
+def placement_line(model, name: str) -> str:
+    from zpaqfranz_tpu_torch.ops.cm_model import Placement, table_words
+
+    p = Placement(model)
+    tables = 1 + sum(1 for cp in model.comps if table_words(cp))
+    return (f"placement [{name}]: n={model.n}, G={p.G}, "
+            f"{p.lanes_per_block} lanes/block, {p.smem} shared bytes/block "
+            f"({4 * p.lane_words} per lane), {len(p.shared)} of {tables} "
+            f"tables (H and the u32 tables) in shared memory")
+
+
 def selector(model) -> bytes:
     """The selector prefix a coded payload starts with: 1 + the PCOMP
     program when the model has one, else 0."""
@@ -409,6 +447,7 @@ def check_cm(torch, np, dev, seed: int) -> dict:
     # are the main path's -m4 and -m5 models (16 MiB blocks)
     for name in ("3", "4.0", "5.0", "all-components", "4", "5"):
         model = models[name]
+        log(placement_line(model, name))
         pays = lane_payloads(np, rng, CM_PLAIN_SIZES)
         streams = [coded_stream(model, p) for p in pays]
         caps = [len(p) + 4096 for p in pays]
@@ -519,6 +558,14 @@ def check_cm_encode(torch, np, dev, seed: int) -> dict:
             f"identical")
         if name == "4":
             timing = (model, in_bytes, sum(map(len, got)), k_ms)
+            top = max(map(len, pays))
+            log(f"-m4 one lane: {top / k_ms:.2f} KB/s per lane, "
+                f"{k_ms * 1e3 / (8 * top):.3f} us per bit (one lane per "
+                f"thread: {ONE_THREAD_M4_KBPS} KB/s, "
+                f"{1e3 / (8 * ONE_THREAD_M4_KBPS):.2f} us per bit; "
+                f"{top / k_ms / ONE_THREAD_M4_KBPS:.2f}x); chain floor of "
+                f"the design {chain_floor_ns(model) / 1e3:.3f} us per bit "
+                f"(one L2 access, shared steps; for reading, not a bound)")
     model, in_bytes, out_bytes, ms = timing
     b_ms, b_by = bound(in_bytes + out_bytes + 4 * cmd.lut("cpu").numel()
                        + cm_touch_bytes(model, in_bytes),
@@ -528,6 +575,45 @@ def check_cm_encode(torch, np, dev, seed: int) -> dict:
             "replaces": "zpaqfranz_tpu/ops/codec_arena.py:915",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+# one lane per model for the per-lane rates and the profiled breakdown of a
+# bit: -m3 (4 KiB, as the ladder's lanes), -m4 and -m5 at 16 MiB-block
+# widths
+CM_PROFILE_LANES = (("3", 4 << 10), ("4", 16 << 10), ("5", 16 << 10))
+
+
+def profile_cm(torch, np, dev, seed: int) -> None:
+    """One lane per model through the CM encode kernel: its rate (CUDA
+    events, a launch of its own) and, from a profiled launch of the same
+    lane (``LaneLaunch(profile=True)``: thread 0's clock counters per
+    phase), the cycles of a bit in each phase and HCOMP's cycles per byte
+    and share of the lane's time. Both launches must code as the native
+    engine does."""
+    from zpaqfranz_tpu_torch.ops import cm_encode as cme
+    from zpaqfranz_tpu_torch.ops.cm_model import PROFILE
+    from zpaqfranz_tpu_torch.ops.cm_model import lanes_to_bytes
+
+    rng = np.random.default_rng(seed)
+    models = cm_models()
+    for name, size in CM_PROFILE_LANES:
+        model = models[name]
+        pay = lane_payloads(np, rng, [size])[0]
+        want = [coded_stream(model, pay)[:-6]]
+        packed = cme.pack_payloads([selector(model) + pay], dev)
+        got, _, ms = timed_cm(torch, cme.Launch, model, packed)
+        job = cme.Launch(model, *packed, profile=True).run()
+        check(got == want and lanes_to_bytes(*job.result()) == want,
+              f"CM encode kernel differs from the native engine ({name})")
+        prof = dict(zip(PROFILE, job.profile()[0].tolist()))
+        bits, nbytes = prof.pop("bits"), prof.pop("bytes")
+        total = sum(prof.values())
+        log(f"-m{name} one lane of {len(pay)} bytes: {len(pay) / ms:.2f} "
+            f"KB/s, {ms * 1e3 / (8 * len(pay)):.3f} us per bit; profiled: "
+            f"{total / bits:.0f} cycles per bit = "
+            + " + ".join(f"{k} {v / bits:.0f}" for k, v in prof.items())
+            + f"; HCOMP {prof['hcomp'] / nbytes:.0f} cycles per byte "
+            f"({100 * prof['hcomp'] / total:.1f}% of the lane)")
 
 
 # ---------------------------------------------------------------------------
@@ -924,6 +1010,10 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"  ({kernels[-1]['name']} checks took "
             f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    profile_cm(torch, np, dev, 8)
+    log(f"  (CM one-lane rates and profiles took "
+        f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     kernels += check_micro(torch, dev)
     log(f"  (table-access kernel checks took {time.perf_counter() - t0:.1f} "

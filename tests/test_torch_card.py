@@ -29,6 +29,7 @@ from zpaqfranz_tpu_torch.jidac.add import add
 from zpaqfranz_tpu_torch.jidac.extract import extract, verify_archive
 from zpaqfranz_tpu_torch.jidac.index import read_archive
 from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+from zpaqfranz_tpu_torch.ops.cm_model import Placement
 from zpaqfranz_tpu_torch.ops import sha1, sha256
 from zpaqfranz_tpu_torch.parallel import device_bench
 from zpaqfranz_tpu_torch.parallel.engine import parse_block_payload
@@ -205,6 +206,121 @@ def test_cm_encode_kernel_runs_long_hcomp_loops(card):
         ref_compile(RUNAWAY_CFG)[0].header_bytes())
     with pytest.raises(cme.CMEncodeError, match="HCOMP program faulted"):
         cme.cm_encode(runaway, *cme.pack_payloads([b"\x00ab"], card))
+
+
+def _round_trip(card, ref, model, raws, plain=True):
+    """Encode and decode ``raws`` as lanes of one launch each: the coded
+    lanes equal the native engine's segments (and the plain version's), the
+    decoded lanes the payloads (and the plain decode's)."""
+    blob = ref.pcomp_bytes()
+    prefix = (b"\x01" + blob) if blob else b"\x00"
+    packed = cme.pack_payloads([prefix + r for r in raws], card)
+    got = cmd.lanes_to_bytes(*cme.cm_encode(model, *packed))
+    coded = _coded(ref, raws)
+    assert got == [c[:-6] for c in coded]
+    streams = cmd.pack_streams(coded, [len(prefix) + len(r) + 64
+                                       for r in raws], card)
+    back = cmd.lanes_to_bytes(*cmd.cm_decode(model, *streams))
+    assert back == [prefix + r for r in raws]
+    if plain:
+        assert got == cmd.lanes_to_bytes(*cme.cm_encode_plain(model,
+                                                              *packed))
+        assert back == cmd.lanes_to_bytes(*cmd.cm_decode_plain(model,
+                                                               *streams))
+
+
+@pytest.mark.parametrize("method", ["3", "4.0"])
+@pytest.mark.parametrize("count", ["1", "lpb", "lpb+1", "3lpb-1"])
+def test_cm_kernels_across_blocks(card, method, count):
+    """1 lane, one full block, one lane into a second block, and one lane
+    short of three blocks (lanes per block from the placement plan): every
+    lane codes as the native engine and the plain version do."""
+    ref, _ = ref_make_model(method)
+    model = convert.model_from_reference_header(ref.header_bytes())
+    lpb = Placement(model).lanes_per_block
+    L = {"1": 1, "lpb": lpb, "lpb+1": lpb + 1, "3lpb-1": 3 * lpb - 1}[count]
+    rng = np.random.default_rng(L)
+    raws = [b"lane %d: " % k + b"the cat sat on the mat " * int(k % 3)
+            + rng.integers(0, 256, int(k % 7), dtype=np.uint8).tobytes()
+            for k in range(L)]
+    before = (cme.launches, cmd.launches)
+    _round_trip(card, ref, model, raws)
+    assert (cme.launches, cmd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("method", ["4.0", "cfg"])
+def test_cm_kernels_find_a_255_byte_match(card, method):
+    """A lane that repeats 700 random bytes: MATCH's length search runs to
+    its limit of 255 and stays there."""
+    if method == "cfg":
+        ref = ref_compile(ALL_COMPONENTS_CFG)[0]
+    else:
+        ref = ref_make_model(method)[0]
+    model = convert.model_from_reference_header(ref.header_bytes())
+    rnd = np.random.default_rng(9).integers(0, 256, 700,
+                                            dtype=np.uint8).tobytes()
+    _round_trip(card, ref, model, [rnd + rnd + rnd[:300], b"", b"ab" * 400],
+                plain=False)
+
+
+# an HCOMP program of most ZPAQL instruction kinds: swaps with registers,
+# *B, *C and *D, ++ -- ! on each, every ALU operation with register, memory
+# and immediate operands, R, HASH/HASHD, and short and long jumps
+OPCODES_CFG = """comp 3 8 0 0 4
+  0 cm 12 4
+  1 cm 12 4
+  2 cm 12 4
+  3 cm 12 4
+hcomp
+  c++ *c=a b=c b-- b--
+  a<<= 3 a^=*b a|= 5 a&~ 2 r=a 1
+  d= 0 *d=a
+  a=r 1 a>>= 1 a+=c a*= 7 a-=b
+  b<>a a=b b=c
+  d= 1 *d<>a a=*d a++ a-- a! a!
+  *d++ *d-- *d! *d!
+  a= 100 a/=*b a+= 3 a%= 7 a+=*c
+  d= 2 *d=a
+  a=*c a== 5 if a+= 1 else a-= 1 endif
+  a> 3 ifnot a*= 3 endif
+  a< 200 ifl a+= 9 elsel a^= 255 endif
+  *b<>a *b++ *c-- a=*b d= 3 *d=a hashd
+  b=c hash hashd a=0 a! a&=*c
+  c<>a c=a a=c d=r 1 d= 3 *d=a
+  halt
+post 0 end
+"""
+
+
+def test_cm_kernels_run_every_kind_of_zpaql_instruction(card):
+    ref = ref_compile(OPCODES_CFG)[0]
+    model = convert.model_from_reference_header(ref.header_bytes())
+    rng = np.random.default_rng(7)
+    _round_trip(card, ref, model, [
+        rng.integers(0, 256, 300, dtype=np.uint8).tobytes(),
+        b"hello hello " * 20, b"\x00" * 50 + bytes(range(256))])
+
+
+# the all-components model with CM, MATCH, MIX, MIX2 and SSE tables beyond a
+# lane's shared budget: they stay in device memory
+DEVICE_TABLES_CFG = ALL_COMPONENTS_CFG
+for _small, _large in (("1 cm 9 4", "1 cm 16 4"),
+                       ("4 match 8 8", "4 match 16 16"),
+                       ("6 mix2 4 5 1", "6 mix2 14 5 1"),
+                       ("7 mix 4 0 6", "7 mix 12 0 6"),
+                       ("8 sse 5 7", "8 sse 12 7")):
+    DEVICE_TABLES_CFG = DEVICE_TABLES_CFG.replace(_small, _large)
+
+
+def test_cm_kernels_with_tables_in_device_memory(card):
+    ref = ref_compile(DEVICE_TABLES_CFG)[0]
+    model = convert.model_from_reference_header(ref.header_bytes())
+    plan = Placement(model)
+    assert not {1, 4, 6, 7, 8} & set(plan.shared)
+    rng = np.random.default_rng(13)
+    raws = [b"the cat sat on the mat " * 3 + rng.integers(
+        0, 256, k, dtype=np.uint8).tobytes() for k in (0, 20, 50)]
+    _round_trip(card, ref, model, raws)
 
 
 @pytest.mark.parametrize("method", ["3", "4.0"])

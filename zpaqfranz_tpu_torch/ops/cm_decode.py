@@ -3,10 +3,11 @@
 Replaces the TPU device program ``zpaqfranz_tpu/ops/codec_arena.py``
 (``ArenaDecoder`` over ``ArenaCoder.byte_step``) and its HCOMP step
 (``ops/hcomp_fast.py`` / ``ops/vm_batched.py``). The kernel is
-``csrc/cm_decode.cu``: one lane (one d block's coded segment) per thread,
-the whole segment in one launch, HCOMP through an in-kernel ZPAQL
-interpreter. The model it runs (arena layout, predictor, update, HCOMP) is
-shared with the encoder: ``csrc/cm_model.cuh`` and ``ops/cm_model.py``.
+``csrc/cm_decode.cu``: one lane (one d block's coded segment) per group of
+G threads, the whole segment in one launch, HCOMP through an in-kernel
+ZPAQL interpreter. The model it runs (arena layout, predictor phases,
+update, HCOMP, the shared-memory ``Placement``) is shared with the
+encoder: ``csrc/cm_model.cuh`` and ``ops/cm_model.py``.
 
 The plain version is ``cm_model.PlainModel`` with libzpaq's range decoder,
 looping over bytes and bits in Python.

@@ -3,10 +3,10 @@
 Replaces the TPU device program ``zpaqfranz_tpu/ops/codec_arena.py``
 (``ArenaEncoder`` over ``ArenaCoder.byte_step``). The kernel is
 ``csrc/cm_encode.cu``: one lane (one d block's payload, selector prefix
-included) per thread, the whole payload in one launch, each lane writing
-through its own output cursor. The model it runs (arena layout, predictor,
-update, HCOMP) is shared with the decoder: ``csrc/cm_model.cuh`` and
-``ops/cm_model.py``.
+included) per group of G threads, the whole payload in one launch, each
+lane writing through its own output cursor. The model it runs (arena
+layout, predictor phases, update, HCOMP, the shared-memory ``Placement``)
+is shared with the decoder: ``csrc/cm_model.cuh`` and ``ops/cm_model.py``.
 
 The range coder is libzpaq's ``Encoder``: each byte starts with the
 end-of-segment bit 0 at p = 0, the byte's bits go at ``predict() * 2 + 1``,

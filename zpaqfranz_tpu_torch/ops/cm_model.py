@@ -2,10 +2,11 @@
 
 Mirrors ``csrc/cm_model.cuh``: the arena layout of one model (``Layout``, a
 copy of ``codec_arena._Layout``), the combined squash/stretch/SNS table,
-fresh lane state, the launch of either lane kernel (``LaneLaunch``: both
-kernels take the same arguments) and the plain PyTorch predictor
-(``PlainModel``) that the plain decoder and encoder extend with their range
-coders.
+fresh lane state, the kernels' placement plan (``Placement``: threads per
+lane, the lane's shared region, which tables live in shared memory), the
+launch of either lane kernel (``LaneLaunch``: both kernels take the same
+arguments) and the plain PyTorch predictor (``PlainModel``) that the plain
+decoder and encoder extend with their range coders.
 
 The plain predictor batches lanes in ``int64`` tensors (CPU ``uint32`` has
 no arithmetic), keeps the arenas as ``uint8`` / ``int32`` tensors widened
@@ -16,7 +17,6 @@ HCOMP run exceeds 2^24 instructions for one byte (ROADMAP.md, Queue 3).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -141,9 +141,175 @@ def initial_lane_state(model: Model, L: int, device
 
 
 def lane_bytes(model: Model) -> int:
-    """Device bytes of one lane's model state (arenas, H and M)."""
-    lay = Layout(model)
-    return lay.s8 + 4 * lay.s32 + (4 << model.hh) + (1 << model.hm)
+    """Device bytes of one lane's state in a kernel launch: the u8 arena at
+    the kernel's aligned offsets, the u32 arena, H unless it lives in
+    shared memory, M and ZPAQL R."""
+    plan = Placement(model)
+    h = 0 if plan.geo["ht"] >= 0 else 4 << model.hh
+    return plan.s8 + 4 * Layout(model).s32 + h + (1 << model.hm) + 1024
+
+
+# ---------------------------------------------------------------------------
+# placement of a model's state for the CUDA kernels
+
+
+#: shared bytes one thread block may use (H100, sm_90)
+SMEM_LIMIT = 232448
+#: shared bytes a lane's region may take: tables beyond it stay in device
+#: memory, which keeps at least four lanes in a block of the standard models
+LANE_BUDGET = 48 << 10
+#: threads of a lane's group: at most one warp
+MAX_GROUP = 32
+#: per-component placement columns (csrc/cm_model.cuh CP_*)
+_NPLAN = 3
+#: the lane region's arrays, in csrc/cm_model.cuh's G_* order
+GEO = ("h", "p", "cxt", "wa", "wb", "rowat", "row", "misc", "ht")
+#: a profiled launch's clock counters per lane (csrc/cm_model.cuh P_*):
+#: cycles of thread 0 in phase (a), waiting for its group, the combine and
+#: coder step, the bit's broadcast, phase (c), the bit's tail, MATCH's byte
+#: end, HCOMP and the new context hashes; then the coded bits and bytes
+PROFILE = ("a", "wait_a", "combine", "wait_b", "c", "tail", "match",
+           "hcomp", "hash", "bits", "bytes")
+
+
+def header_bytes(n: int, hlen: int) -> int:
+    """Bytes of a block's shared header (csrc/cm_model.cuh
+    ``header_bytes``): squash as int16, the state table, the lower half of
+    stretch as int16, the counter steps and MATCH's 2048 / length, the
+    combine's steps, the model's offsets, parameters and placement, two
+    component lists and HCOMP with a byte of padding."""
+    return (4096 * 2 + 1024 + 16384 * 2 + 1024 * 4 + 256 * 2 + 16 * n
+            + 16 * n + 4 * _NPAR * n + 4 * _NPLAN * n + 8 * n + 12 + hlen
+            + 1 + 15) & ~15
+
+
+def table_words(cp) -> int:
+    """Words of a component's u32 table (``Layout``'s segment)."""
+    t = cp[0]
+    if t == T.ICM:
+        return 256
+    if t == T.ISSE:
+        return 512
+    if t in (T.CM, T.MATCH, T.MIX2):
+        return 1 << cp[1]
+    if t == T.MIX:
+        return (1 << cp[1]) * cp[3]
+    if t == T.SSE:
+        return 32 << cp[1]
+    return 0
+
+
+def hcomp_bytes(model: Model) -> bytes:
+    """The HCOMP bytecode a kernel runs (a lone HALT for none)."""
+    return model.hcomp or b"\x38"
+
+
+class Placement:
+    """Where a CUDA launch keeps one model's state, the plan that
+    ``csrc/cm_model.cuh`` runs.
+
+    - ``G``: threads that code one lane, the power of two >= n up to 32.
+    - The lane's shared region (``lane_words`` words, 16-byte aligned
+      pieces): per-component arrays (``geo``), the MIX and SSE row copies
+      (``rows``: component -> word offset), thread 0's broadcast words, and
+      the tables placed in shared memory (``shared``: component
+      -> word offset of its u32 table, -1 -> HCOMP's H), smallest first
+      while the region stays within ``LANE_BUDGET``. Every other table
+      stays in device memory: the u8 tables always (at ``off8``, 64-byte
+      aligned, stride ``s8``), the u32 tables at ``Layout``'s offsets, H in
+      its own tensor, and ZPAQL R (which the standard programs never use).
+    - ``lanes_per_block``: lanes whose regions fit one block beside the
+      header (``header``), at most 1024 threads; ``smem``: the block's
+      shared bytes."""
+
+    def __init__(self, model: Model):
+        n = model.n
+        if not 1 <= n <= 256:
+            raise ValueError(f"a CM kernel takes 1..256 components, not {n}")
+        comps = [tuple(c) for c in model.comps]
+        self.G = 1
+        while self.G < min(n, MAX_GROUP):
+            self.G *= 2
+        words = 0
+        #: (name, word offset, words) of every piece of the lane region
+        self.pieces: List[Tuple[object, int, int]] = []
+
+        def take(name, k: int) -> int:
+            nonlocal words
+            off = words
+            words += -(-k // 4) * 4
+            self.pieces.append((name, off, k))
+            return off
+
+        self.geo = {g: take(g, 2 * n if g == "p" else n) for g in GEO[:6]}
+        self.geo["row"] = take("row", 4 * n)
+        self.rows: Dict[int, int] = {}
+        for i, cp in enumerate(comps):
+            if cp[0] in (T.MIX, T.SSE):
+                self.rows[i] = take(("rows", i),
+                                    cp[3] if cp[0] == T.MIX else 32)
+        self.geo["misc"] = take("misc", 4)
+        tables = sorted([(1 << model.hh, -1)] + [
+            (table_words(cp), i) for i, cp in enumerate(comps)
+            if table_words(cp)])
+        self.shared: Dict[int, int] = {}
+        for size, i in tables:
+            if 4 * (words + -(-size // 4) * 4) <= LANE_BUDGET:
+                self.shared[i] = take(("table", i), size)
+        self.geo["ht"] = self.shared.get(-1, -1)
+        self.lane_words = words
+        self.header = header_bytes(n, len(hcomp_bytes(model)))
+        self.lanes_per_block = min((SMEM_LIMIT - self.header)
+                                   // (4 * words), 1024 // self.G)
+        if self.lanes_per_block < 1:
+            raise ValueError(f"model with {n} components does not fit a "
+                             f"block's shared memory")
+        self.smem = self.header + self.lanes_per_block * 4 * words
+        self.off8 = [0] * n
+        s8 = 0
+        for i, cp in enumerate(comps):
+            if cp[0] in (T.ICM, T.ISSE, T.MATCH):
+                self.off8[i] = s8
+                s8 += (64 << cp[1]) if cp[0] != T.MATCH else 1 << cp[2]
+                s8 = -(-s8 // 64) * 64
+        self.s8 = max(s8, 64)
+
+    def blocks(self, L: int) -> int:
+        """Thread blocks of a launch over ``L`` lanes (the kernels' grid)."""
+        return -(-L // self.lanes_per_block)
+
+    def cplan(self, model: Model) -> np.ndarray:
+        """(n, 3) int32: shared word offset of each u32 table (-1: device
+        memory), its words, and the offset of its row copy (-1: none)."""
+        out = np.full((model.n, _NPLAN), -1, np.int32)
+        for i, cp in enumerate(model.comps):
+            out[i, 0] = self.shared.get(i, -1)
+            out[i, 1] = table_words(cp)
+            out[i, 2] = self.rows.get(i, -1)
+        return out
+
+    def geometry(self) -> np.ndarray:
+        return np.array([self.geo[g] for g in GEO], np.int32)
+
+
+def kernel_state(model: Model, plan: Placement, L: int, device
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Fresh state for ``L`` lanes of a kernel launch: the state of
+    ``initial_lane_state`` with the u8 arena at the plan's aligned offsets
+    and H only where it lives in device memory (else one unused word)."""
+    a8_row = np.zeros(plan.s8, np.uint8)
+    for i, cp in enumerate(model.comps):
+        if cp[0] == T.MATCH:
+            a8_row[plan.off8[i]] = 1
+    a32_row = Layout(model).init_rows()[1]
+    a8 = torch.from_numpy(a8_row).to(device).expand(L, -1).contiguous()
+    a32 = torch.from_numpy(a32_row.view(np.int32)).to(device).expand(
+        L, -1).contiguous()
+    hmem = torch.zeros((L, 1 << model.hh) if plan.geo["ht"] < 0 else (1,),
+                       dtype=torch.int32, device=device)
+    mmem = torch.zeros((L, 1 << model.hm), dtype=torch.uint8, device=device)
+    return a8, a32, hmem, mmem
 
 
 def check_lanes(model: Model, src: torch.Tensor, in_off: torch.Tensor,
@@ -214,25 +380,35 @@ def lanes_to_bytes(out: torch.Tensor, out_off: torch.Tensor,
 
 class LaneLaunch:
     """One launch of a CM lane kernel over every lane, prepared: inputs
-    checked, the model's tables and fresh lane state on the card, outputs
-    allocated. ``run()`` launches the kernel once; ``result()`` raises
-    ``error`` for a failed lane and returns ``(out, out_off, out_len)``.
-    The split lets a caller time the launch apart from the state set-up.
+    checked, the model's tables, its ``Placement`` and fresh lane state on
+    the card, outputs allocated. ``run()`` launches the kernel once;
+    ``result()`` raises ``error`` for a failed lane and returns ``(out,
+    out_off, out_len)``. The split lets a caller time the launch apart from
+    the state set-up. ``profile=True`` has thread 0 of every lane count its
+    clock cycles per phase (``PROFILE``), read with ``profile()``.
 
     Subclasses name the kernel (its library under ``csrc/`` and the prefix
-    of its ``_threads`` / ``_launch`` symbols), the error, the reason of
-    each status, and count their launches in ``counted()``."""
+    of its ``_launch`` symbol), the error, the reason of each status, and
+    count their launches in ``counted()``."""
 
     kernel = ""
     error: type = RuntimeError
     reasons: Dict[int, str] = {}
 
     def __init__(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
-                 in_len: torch.Tensor, out_cap: torch.Tensor):
+                 in_len: torch.Tensor, out_cap: torch.Tensor,
+                 profile: bool = False):
         check_lanes(model, src, in_off, in_len, out_cap)
+        if src.device.type != "cuda":
+            raise ValueError(f"no {self.kernel} kernel for device "
+                             f"{src.device}")
+        self.prepare(model, src, in_off, in_len, out_cap, profile)
+
+    def prepare(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
+                in_len: torch.Tensor, out_cap: torch.Tensor,
+                profile: bool = False) -> None:
+        """Build the launch's arguments on the inputs' device."""
         dev = src.device
-        if dev.type != "cuda":
-            raise ValueError(f"no {self.kernel} kernel for device {dev}")
         L = in_off.shape[0]
         if L == 0:
             raise ValueError("no lanes to code")
@@ -241,43 +417,39 @@ class LaneLaunch:
                 or int(out_cap.min()) < 0):
             raise ValueError("a lane reaches outside its input, or has a "
                              "negative capacity")
-        lib = build.load(self.kernel)
         lay = Layout(model)
+        self.plan = plan = Placement(model)
         comps = np.zeros((model.n, _NPAR), np.int32)
         for i, cp in enumerate(lay.comps):
             comps[i, :len(cp)] = cp
-        off8 = np.array([lay.off8.get(i, 0) for i in range(model.n)],
-                        np.int64)
         off32 = np.array([lay.off32.get(i, 0) for i in range(model.n)],
                          np.int64)
-        hcomp = np.frombuffer(model.hcomp or b"\x38", np.uint8)
+        hcomp = np.frombuffer(hcomp_bytes(model), np.uint8).copy()
         self.dev = dev
+        t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
         # kept here so that the tensors outlive the launch
-        self._inputs = (torch.from_numpy(comps).to(dev),
-                        torch.from_numpy(off8).to(dev),
-                        torch.from_numpy(off32).to(dev),
-                        torch.from_numpy(hcomp.copy()).to(dev), lut(dev),
-                        src, in_off, in_len, out_cap)
-        self._state = initial_lane_state(model, L, dev)
+        self._inputs = (t(comps), t(plan.cplan(model)),
+                        t(np.array(plan.off8, np.int64)), t(off32), t(hcomp),
+                        t(plan.geometry()), lut(dev))
+        self._state = kernel_state(model, plan, L, dev)
+        self._rmem = torch.zeros((L, 256), dtype=torch.int32, device=dev)
         self.out_off = out_offsets(out_cap)
         self.out = torch.empty(int(out_cap.sum()) or 1, dtype=torch.uint8,
                                device=dev)
         self.out_len = torch.empty(L, dtype=torch.int64, device=dev)
         self.status = torch.empty(L, dtype=torch.int32, device=dev)
-
-        threads_fn = getattr(lib, f"{self.kernel}_threads")
-        threads_fn.restype = ctypes.c_int
-        threads_fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        threads = threads_fn(model.n, len(hcomp))
-        if threads < 1:
-            raise ValueError(f"model with {model.n} components does not fit")
-        t_comps, t_off8, t_off32, t_hcomp, t_lut = self._inputs[:5]
+        self.prof = (torch.zeros((L, len(PROFILE)), dtype=torch.int64,
+                                 device=dev) if profile else None)
+        t_comps, t_cplan, t_off8, t_off32, t_hcomp, t_geo, t_lut = \
+            self._inputs
         a8, a32, hmem, mmem = self._state
         self._args = (
-            t_comps, t_off8, t_off32, model.n, t_hcomp, len(hcomp), model.hh,
-            model.hm, t_lut, src, in_off, in_len, a8, lay.s8, a32, lay.s32,
-            hmem, mmem, self.out, self.out_off, out_cap, self.out_len,
-            self.status, L, threads)
+            t_comps, t_cplan, t_off8, t_off32, model.n, t_hcomp, len(hcomp),
+            model.hh, model.hm, plan.G, plan.lanes_per_block, plan.blocks(L),
+            plan.lane_words, t_geo, t_lut, src, in_off, in_len, a8, plan.s8,
+            a32, lay.s32, hmem, mmem, self._rmem, self.out, self.out_off,
+            out_cap, self.out_len, self.status,
+            0 if self.prof is None else self.prof, L)
         self._ran = False
 
     def counted(self) -> None:
@@ -292,6 +464,12 @@ class LaneLaunch:
         build.call(self.kernel, f"{self.kernel}_launch", self.dev, *self._args)
         self.counted()
         return self
+
+    def profile(self) -> np.ndarray:
+        """(L, len(PROFILE)) int64 clock counters of a profiled launch."""
+        if self.prof is None or not self._ran:
+            raise RuntimeError("not a profiled launch that has run")
+        return self.prof.cpu().numpy()
 
     def result(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         if not self._ran:

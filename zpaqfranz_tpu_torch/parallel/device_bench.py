@@ -3,7 +3,7 @@
 The one place the port codes many lanes per launch and measures the card's
 codec and hash rates. ``LADDER`` holds the stages, cheapest first: the
 SHA-1 lane kernel, then CM encode and decode lanes at 8 to 1024 lanes per
-launch (up to 32 thread blocks of the CM kernels). Every stage reports the
+launch (up to 30 thread blocks of the CM kernels). Every stage reports the
 host engine's rate on the same bytes beside the card's, because the host
 engine is the bar the card has to beat, and every codec stage checks that
 each lane's coded stream equals the host engine's and decodes back to its

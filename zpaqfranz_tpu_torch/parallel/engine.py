@@ -1,9 +1,9 @@
 """Device engine: jidac d blocks as lanes of the CM decode and encode kernels.
 
 The GPU mapping of the reference's one-thread-per-block parallelism: every
-modeled d block is one lane of ``ops.cm_decode`` or ``ops.cm_encode`` (one
-CUDA thread), lanes that share a model (the COMP/HCOMP header) go out in one
-launch, and each lane runs to its own end. Launches are sized by
+modeled d block is one lane of ``ops.cm_decode`` or ``ops.cm_encode`` (a
+group of CUDA threads), lanes that share a model (the COMP/HCOMP header) go
+out in one launch, and each lane runs to its own end. Launches are sized by
 ``lanes_per_launch`` against the card's free memory. Preprocessing (LZ77,
 BWT, E8E9) and postprocessing (PASS strip, LZ77 and BWT inversion) and store
 blocks (``model.n == 0``) stay on the host, in the native engine.
