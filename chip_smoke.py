@@ -9,10 +9,15 @@ It builds the port's six CUDA sources (``zpaqfranz_tpu_torch/csrc/*.cu``,
 one ``nvcc`` each, all started together, into
 ``zpaqfranz_tpu_torch/build/``) with their eleven kernels, and holds each
 kernel bit-exact against its plain PyTorch version: the SHA-1, SHA-256 and
-CM decode and encode kernels on the checks' own lanes (the CM kernels also
-against the native host engine, with each model's placement printed: G
-threads per lane, lanes per block, shared bytes; then one lane per level
-for its rate and a profiled breakdown of a bit), the seven table-access
+CM decode and encode kernels on the checks' own lanes (the hash kernels
+also against hashlib at every offset 0..63 at the padding's edge lengths,
+on messages that end on the last byte of a tensor and on the fragment
+shape, 16,384 lanes of ~0.6 GB, each shape timed beside its bound: bytes,
+instructions and the chain of the longest lane, from a profiled lane
+alone; the CM kernels also against the native host engine, with each
+model's placement printed: G threads per lane, lanes per block, shared
+bytes; then one lane per level for its rate and a profiled breakdown of a
+bit), the seven table-access
 microbenchmark kernels (``experiments/mb_access.py`` A-E,
 ``experiments/mb_vmem_probe.py`` P1, P2) at every shape their scripts
 time, on the scripts' inputs and on seeded random tables and indices of
@@ -70,6 +75,15 @@ SHA1_OPS_PER_BLOCK = 80 * 5 + 64 * 3 + 5
 # e and a (2 adds); 48 schedule words at s0 and s1 (3 shifts + 1 LOP3
 # each) and 2 IADD3; 8 final adds.
 SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
+# Dependent instructions on one compression's critical path, counted from
+# the same sources: SHA-1 2 a round (rotl(a, 5) beside f's LOP3, then one
+# IADD3 with e + k + w summed off the path), SHA-256 3 a round (e's funnel
+# shifts side by side, S1's LOP3 beside ch's, then one IADD3 with h + K + w
+# summed off the path), and the final add. Times the cycles a dependent
+# instruction takes (the one-lane profile) and the longest lane's blocks,
+# they make the chain floor: no launch can hash that lane faster.
+SHA1_CHAIN_PER_BLOCK = 80 * 2 + 1
+SHA256_CHAIN_PER_BLOCK = 64 * 3 + 1
 # 32-bit integer operations of one component's predict and update for one
 # coded bit (index, table read, arithmetic, clamp, write), counted loosely
 # from csrc/cm_model.cuh; the CM bound is bytes-bound either way.
@@ -86,6 +100,19 @@ M5_BYTES = 2 << 20
 # version and hashlib, and timed
 HASH_LANES = 4096
 HASH_MAX = 256 << 10
+# kernel times of the earlier design, one message per thread, on that
+# shape (PERF.md, smoke) and on the fragment shape (PERF.md,
+# hash_lanes_bench), for reading
+ONE_THREAD_HASH_MS = {"sha1": 9.141, "sha256": 11.831}
+ONE_THREAD_FRAG_MS = {"sha1": 4.47, "sha256": 5.95}
+# every offset 0..63 of a buffer at each of the padding's edge lengths
+HASH_EDGES = (0, 1, 55, 56, 63, 64, 65, 119, 120, 128)
+# the fragment shape: the fragments of ``t`` over an archive of ~0.6 GB at
+# zpaqfranz's default fragment size (64 KiB on average), back to back
+FRAG_LANES = 16384
+FRAG_MIN, FRAG_MAX = 4 << 10, 128 << 10
+# the one-lane profile: one lane of 1 MiB alone
+PROFILE_LANE = 1 << 20
 # CM kernel vs plain: four short lanes per model. The plain version runs a
 # few hundred tensor ops per coded bit (~80 ms per decoded byte at -m4), so
 # a main-path lane of ~1 MB would take about a day; longer lanes are held
@@ -269,47 +296,188 @@ def graphed(torch, dev, fn, *shapes):
     return run
 
 
+def hash_bounds(np, lens, state: int, ops_per_block: int,
+                rounds_ns: float) -> dict:
+    """The three terms of a hash launch's least time, in ms, for lanes of
+    ``lens`` bytes: its bytes (each message byte, offset and length read
+    once, each state written once) over the card's memory rate, its
+    instructions over the INT32 rate, and the chain floor: the longest
+    lane's blocks at ``rounds_ns`` per block (one lane's rounds alone)."""
+    lens = np.asarray(lens, np.int64)
+    blocks = (lens + 9 + 63) // 64
+    return {"bytes": (int(lens.sum()) + (16 + state) * lens.size)
+            / HBM_BYTES_PER_S * 1e3,
+            "operations": int(blocks.sum()) * ops_per_block
+            / INT32_OPS_PER_S * 1e3,
+            "chain": int(blocks.max()) * rounds_ns / 1e6}
+
+
+def bound_text(b: dict) -> str:
+    by = max(b, key=b.get)
+    return (f"bound {b[by]:.4f} ms ({by}; " + ", ".join(
+        f"{k} {v:.4f}" for k, v in b.items()) + ")")
+
+
 def check_hash(torch, np, dev, seed: int, algo: str) -> dict:
-    """Hold a hash lane kernel (``sha1`` or ``sha256``) against its plain
-    version and hashlib on ``HASH_LANES`` lanes, and time both there. The
-    plain version runs its block loop with its compression replayed as a
-    CUDA graph (``graphed``)."""
+    """Hold a hash lane kernel (``sha1`` or ``sha256``) against hashlib and
+    time it beside its three-term bound (``hash_bounds``) on every shape:
+    one 1 MiB lane alone, profiled (``PROFILE``: the cycles a block waits
+    for its bytes, builds its words, runs its rounds; the chain's cycles
+    per dependent instruction and the SM clock); ``HASH_LANES`` lanes of
+    log-uniform lengths, also against the plain version (its block loop
+    with the compression replayed as a CUDA graph, ``graphed``) and
+    profiled, with the host-to-device copy pageable and pinned; every
+    offset 0..63 at the padding's edge lengths; messages that end on the
+    last byte of a tensor of 4,099 bytes; and the fragment shape."""
     from zpaqfranz_tpu_torch.ops import sha1, sha256
 
-    mod, ops_per_block, ref = {
-        "sha1": (sha1, SHA1_OPS_PER_BLOCK, hashlib.sha1),
-        "sha256": (sha256, SHA256_OPS_PER_BLOCK, hashlib.sha256)}[algo]
+    mod, ops_per_block, chain_per_block, ref = {
+        "sha1": (sha1, SHA1_OPS_PER_BLOCK, SHA1_CHAIN_PER_BLOCK,
+                 hashlib.sha1),
+        "sha256": (sha256, SHA256_OPS_PER_BLOCK, SHA256_CHAIN_PER_BLOCK,
+                   hashlib.sha256)}[algo]
     lanes = getattr(mod, f"{algo}_lanes")
+    state = ref().digest_size
     rng = np.random.default_rng(seed)
+
+    def launch_ms(*args) -> float:
+        """The kernel alone: CUDA events around launches of one prepared
+        launch (the wrapper's checks and plan done once)."""
+        job = sha1.HashLaunch(f"{algo}_lanes", len(mod._IV), *args)
+        return cuda_ms(torch, job.run, 5)
+
+    def digests_ok(data, off, length, want, what: str, profile=None):
+        got = lanes(data, off, length, profile)
+        check(sha1.to_digests(got) == want,
+              f"{algo} kernel differs from hashlib ({what})")
+        return got
+
+    def profiled(data, off, length, want, what: str) -> dict:
+        prof = torch.zeros(len(sha1.PROFILE), dtype=torch.int64, device=dev)
+        digests_ok(data, off, length, want, what, prof)
+        return dict(zip(sha1.PROFILE, prof.tolist()))
+
+    def per_block(p: dict) -> str:
+        k = p["blocks"]
+        return (f"consumer {p['total'] / k:.0f} cycles a block = wait for "
+                f"the schedule {p['wait'] / k:.0f} + rounds "
+                f"{p['rounds'] / k:.0f}; producer: wait for a free buffer "
+                f"and the bytes {p['bytes'] / k:.0f}, words, schedule and "
+                f"copies {p['words'] / k:.0f}")
+
+    # one lane alone: the chain's cycles on this card. The profiled launch
+    # gives the SM clock and the rounds' share of the consumer's cycles;
+    # the rounds' time a block is that share of the plain launch's.
+    one = rng.bytes(PROFILE_LANE)
+    args = sha1.pack_messages([one], dev)
+    want = [ref(one).digest()]
+    p = profiled(*args, want, "one lane")
+    prof = torch.zeros(len(sha1.PROFILE), dtype=torch.int64, device=dev)
+    prof_ms = launch_ms(*args, prof)
+    one_ms = launch_ms(*args)
+    clock_ghz = p["total"] / (prof_ms * 1e6)
+    rounds_ns = one_ms * 1e6 / p["blocks"] * p["rounds"] / p["total"]
+    log(f"{algo} one lane of {PROFILE_LANE} bytes alone: kernel {one_ms:.3f} "
+        f"ms ({p['blocks']} blocks, {one_ms * 1e6 / p['blocks']:.0f} ns a "
+        f"block, the rounds {rounds_ns:.0f}; profiled {prof_ms:.3f} ms, SM "
+        f"clock {clock_ghz:.3f} GHz); {per_block(p)}; the rounds' chain "
+        f"{rounds_ns * clock_ghz / chain_per_block:.2f} cycles per dependent "
+        f"instruction ({chain_per_block} a block)")
+
+    # HASH_LANES log-uniform lanes: plain, hashlib, profile, copies
     msgs = hash_messages(np, rng, HASH_LANES, HASH_MAX)
+    want = [ref(m).digest() for m in msgs]
     data, off, length = sha1.pack_messages(msgs, dev)
-    # host -> device copy of the message bytes, as verify_archive does it
-    flat = data.cpu().numpy()
-    h2d_ms = wall_ms(torch, lambda: torch.from_numpy(flat).to(dev))
-    got = lanes(data, off, length)
-    check(sha1.to_digests(got) == [ref(m).digest() for m in msgs],
-          f"{algo} kernel differs from hashlib")
-    ms = cuda_ms(torch, lambda: lanes(data, off, length), 5)
+    # host -> device: the copy alone from pageable and pinned memory, and
+    # the whole staging of the messages, pageable (join, copy, a pageable
+    # copy) and as stage_bytes does it (the first call allocates its
+    # pinned block, later ones reuse it)
+    flat = data.cpu()
+    h2d_ms = wall_ms(torch, lambda: flat.to(dev))
+    pinned = flat.pin_memory()
+    pin_ms = wall_ms(torch, lambda: pinned.to(dev, non_blocking=True))
+    del pinned
+    join_ms = wall_ms(torch, lambda: torch.from_numpy(np.frombuffer(
+        b"".join(msgs), np.uint8).copy()).to(dev))
+    stage_ms = [wall_ms(torch, lambda: sha1.stage_bytes(msgs, dev))
+                for _ in range(3)]
+    got = digests_ok(data, off, length, want, f"{HASH_LANES} lanes")
+    p = profiled(data, off, length, want, f"{HASH_LANES} lanes")
+    ms = launch_ms(data, off, length)
+    call_ms = cuda_ms(torch, lambda: lanes(data, off, length), 5)
     compress = graphed(torch, dev, mod._compress, (len(msgs), len(mod._IV)),
                        (len(msgs), 16))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = sha1.plain_lanes(mod._IV, compress, data, off, length)
+    plain = sha1.plain_lanes(mod._IV, compress, data, off, length)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = int((got.view(torch.int32).long() & 0xFFFFFFFF).sub(
-        want.view(torch.int32).long() & 0xFFFFFFFF).abs().max())
+        plain.view(torch.int32).long() & 0xFFFFFFFF).abs().max())
     check(err == 0, f"{algo} kernel differs from its plain version")
-    nbytes = sum(map(len, msgs))
-    blocks = sum((len(m) + 9 + 63) // 64 for m in msgs)
-    state = ref().digest_size
+    lens = [len(m) for m in msgs]
+    b = hash_bounds(np, lens, state, ops_per_block, rounds_ns)
+    nbytes = sum(lens)
+    log(f"{algo}_lanes: {len(msgs)} lanes, {nbytes} bytes, log-uniform up "
+        f"to {HASH_MAX}: kernel {ms:.3f} ms ({nbytes / ms / 1e6:.2f} GB/s; "
+        f"one message per thread: {ONE_THREAD_HASH_MS[algo]} ms), {bound_text(b)}; wrapper call "
+        f"{call_ms:.3f} ms; longest lane in the launch: {per_block(p)}; "
+        f"host->device copy alone pageable {h2d_ms:.2f} ms, pinned "
+        f"{pin_ms:.2f} ms; staging the messages pageable (join, copy, "
+        f"pageable copy) {join_ms:.2f} ms, stage_bytes (gather into pinned "
+        f"memory, copy) {stage_ms[0]:.2f} ms first, "
+        f"{min(stage_ms[1:]):.2f} ms reusing its block; plain "
+        f"{plain_ms:.1f} ms (compression as a CUDA graph); digests match "
+        f"plain and hashlib")
     b_ms, b_by = bound(nbytes + (16 + state) * len(msgs),
-                       blocks * ops_per_block)
-    log(f"{algo}_lanes: {len(msgs)} lanes, {nbytes} bytes: kernel {ms:.3f} "
-        f"ms ({nbytes / ms / 1e6:.2f} GB/s), bound {b_ms:.4f} ms ({b_by}, "
-        f"{ops_per_block} instructions per block), host->device copy "
-        f"{h2d_ms:.2f} ms; plain {plain_ms:.1f} ms (compression as a CUDA "
-        f"graph); digests match plain and hashlib")
+                       sum((n + 9 + 63) // 64 for n in lens) * ops_per_block)
+
+    # every offset 0..63 at the padding's edge lengths, one buffer of 1,001
+    # bytes
+    buf = rng.bytes(1001)
+    spans = [(o, n) for o in range(64) for n in HASH_EDGES]
+    data = torch.frombuffer(bytearray(buf), dtype=torch.uint8).to(dev)
+    off = torch.tensor([o for o, _ in spans], dtype=torch.int64, device=dev)
+    length = torch.tensor([n for _, n in spans], dtype=torch.int64,
+                          device=dev)
+    digests_ok(data, off, length, [ref(buf[o:o + n]).digest()
+                                   for o, n in spans], "offsets 0..63")
+    edge_ms = launch_ms(data, off, length)
+    b_edge = hash_bounds(np, [n for _, n in spans], state, ops_per_block,
+                         rounds_ns)
+    # messages ending on the last byte of a 4,099-byte view at offset 5
+    big = torch.frombuffer(bytearray(rng.bytes(5000)), dtype=torch.uint8)
+    data = big.to(dev)[5:5 + 4099]
+    tail = [1, 15, 16, 64, 65, 4099]
+    host = big[5:5 + 4099].numpy().tobytes()
+    digests_ok(data, torch.tensor([4099 - n for n in tail], dtype=torch.int64,
+                                  device=dev),
+               torch.tensor(tail, dtype=torch.int64, device=dev),
+               [ref(host[-n:]).digest() for n in tail], "end of data")
+    log(f"{algo}_lanes: every offset 0..63 at lengths {list(HASH_EDGES)} "
+        f"({len(spans)} lanes): kernel {edge_ms:.4f} ms, "
+        f"{bound_text(b_edge)}; messages of {tail} bytes ending on the last "
+        f"byte of a 4,099-byte view: digests match hashlib")
+
+    # the fragment shape, back to back
+    lens = np.exp(rng.uniform(np.log(FRAG_MIN), np.log(FRAG_MAX),
+                              FRAG_LANES)).astype(np.int64)
+    frag = rng.bytes(int(lens.sum()))
+    ends = np.cumsum(lens)
+    view = memoryview(frag)
+    want = [ref(view[e - n:e]).digest() for e, n in zip(ends, lens)]
+    data = sha1.stage_bytes([frag], dev)
+    off = torch.from_numpy(ends - lens).to(dev)
+    length = torch.from_numpy(lens).to(dev)
+    digests_ok(data, off, length, want, "fragments")
+    frag_ms = launch_ms(data, off, length)
+    b_frag = hash_bounds(np, lens, state, ops_per_block, rounds_ns)
+    log(f"{algo}_lanes: fragments, {FRAG_LANES} lanes of log-uniform "
+        f"{FRAG_MIN}-{FRAG_MAX} bytes, {len(frag)} bytes: kernel "
+        f"{frag_ms:.3f} ms ({len(frag) / frag_ms / 1e6:.2f} GB/s; one message "
+        f"per thread: {ONE_THREAD_FRAG_MS[algo]} ms), {bound_text(b_frag)}; digests match "
+        f"hashlib")
+    del frag, view, data
     return {"name": f"{algo}_lanes", "route": "cuda",
             "source": f"zpaqfranz_tpu_torch/csrc/{algo}_lanes.cu",
             "replaces": "zpaqfranz_tpu/ops/hash_pallas.py:216",

@@ -83,6 +83,85 @@ def test_sha256_kernel_matches_plain(card):
                                     for c in chunks]
 
 
+HASHES = [(sha1.sha1_lanes, hashlib.sha1), (sha256.sha256_lanes,
+                                           hashlib.sha256)]
+
+
+def _hash_spans(lanes, ref, data, spans):
+    """The kernel's digests of ``data[o:o + n]`` for ``spans`` against
+    hashlib's."""
+    host = data.cpu().numpy().tobytes()
+    dev = data.device
+    off = torch.tensor([o for o, _ in spans], dtype=torch.int64, device=dev)
+    ln = torch.tensor([n for _, n in spans], dtype=torch.int64, device=dev)
+    got = sha1.to_digests(lanes(data, off, ln))
+    assert got == [ref(host[o:o + n]).digest() for o, n in spans]
+
+
+@pytest.mark.parametrize("lanes,ref", HASHES)
+def test_hash_kernels_at_every_offset_and_padding_edge(card, lanes, ref):
+    rng = np.random.default_rng(13)
+    data = torch.from_numpy(rng.integers(0, 256, 1001, dtype=np.uint8)).to(
+        card)
+    _hash_spans(lanes, ref, data, [
+        (o, n) for o in range(64)
+        for n in (0, 1, 55, 56, 63, 64, 65, 119, 120, 128)])
+
+
+@pytest.mark.parametrize("lanes,ref", HASHES)
+@pytest.mark.parametrize("count", [1, 31, 32, 33, 4223, 4224, 4225,
+                                   150_000])
+def test_hash_kernels_at_lane_counts(card, lanes, ref, count):
+    # one thread block (32 lanes), a block +- 1, one block per SM of the
+    # H100 +- 1, and several waves of blocks
+    rng = np.random.default_rng(count)
+    data = torch.from_numpy(rng.integers(0, 256, 20_000, dtype=np.uint8)).to(
+        card)
+    lens = rng.integers(0, 300, count)
+    offs = rng.integers(0, 20_000 - 300, count)
+    _hash_spans(lanes, ref, data, list(zip(offs.tolist(), lens.tolist())))
+
+
+@pytest.mark.parametrize("lanes,ref", HASHES)
+def test_hash_kernels_with_one_lane_far_longer(card, lanes, ref):
+    rng = np.random.default_rng(14)
+    data = torch.from_numpy(rng.integers(0, 256, 3 << 20, dtype=np.uint8)).to(
+        card)
+    spans = [(int(o), int(n)) for o, n in zip(rng.integers(0, 1 << 20, 200),
+                                              rng.integers(0, 5000, 200))]
+    _hash_spans(lanes, ref, data, spans[:77] + [(3, (2 << 20) + 7)]
+                + spans[77:])
+
+
+@pytest.mark.parametrize("lanes,ref", HASHES)
+def test_hash_kernels_read_to_the_last_byte_of_data(card, lanes, ref):
+    # views of 4,099 bytes (not a multiple of 16) at offsets of one buffer
+    rng = np.random.default_rng(15)
+    buf = torch.from_numpy(rng.integers(0, 256, 5000, dtype=np.uint8)).to(
+        card)
+    for start in (0, 5, 16):
+        data = buf[start:start + 4099]
+        _hash_spans(lanes, ref, data, [(4099 - n, n) for n in
+                                       (0, 1, 15, 16, 17, 64, 65, 4099)])
+
+
+def test_hash_kernels_pinned_packing_and_profile(card):
+    rng = np.random.default_rng(16)
+    msgs = [rng.integers(0, 256, int(k), dtype=np.uint8).tobytes()
+            for k in rng.integers(0, 70_000, 300)]
+    data, off, ln = sha1.pack_messages(msgs, card)
+    cpu = sha1.pack_messages(msgs, "cpu")
+    for a, b in zip((data, off, ln), cpu):
+        assert torch.equal(a.cpu(), b)
+    prof = torch.zeros(len(sha1.PROFILE), dtype=torch.int64, device=card)
+    got = sha256.sha256_lanes(data, off, ln, prof)
+    assert sha1.to_digests(got) == [hashlib.sha256(m).digest() for m in msgs]
+    p = dict(zip(sha1.PROFILE, prof.tolist()))
+    assert p["blocks"] == (max(map(len, msgs)) + 9 + 63) // 64
+    assert 0 < p["rounds"] and p["wait"] + p["rounds"] <= p["total"]
+    assert 0 < p["words"]
+
+
 @pytest.mark.parametrize("method", ["3", "4.0", "5.0", "cfg"])
 def test_cm_kernel_matches_plain(card, method):
     if method == "cfg":

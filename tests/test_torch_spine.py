@@ -3,6 +3,11 @@ model headers, the native engine binding, and the state carried into the
 port (``convert.py``). Every comparison is exact."""
 
 import dataclasses
+import os
+import pathlib
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -23,6 +28,8 @@ from zpaqfranz_tpu_torch.parallel import engine
 from zpaqfranz_tpu_torch.zpaql import compiler
 
 from test_codec_arena import ALL_COMPONENTS_CFG
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 METHODS = ["0", "1", "2", "3", "4", "5", "4.0", "5.0"]
 
@@ -73,6 +80,36 @@ def test_native_compress_block_identical(method):
     ours = native.compress_block(model, payload, b"name", b"comment")
     ref = ref_native.compress_block(ref_model, payload, b"name", b"comment")
     assert ours == ref
+
+
+def test_native_build_uses_the_makefile_flags():
+    text = (ROOT / "native" / "Makefile").read_text().replace("\\\n", " ")
+    flags = re.search(r"^CXXFLAGS \?= (.*)$", text, re.M).group(1).split()
+    want = [f for f in flags if not f.startswith("-W")] + ["-shared"]
+    assert sorted(native.CXXFLAGS) == sorted(want)
+    rule = re.search(r"^\t\$\(CXX\).*$", text, re.M).group(0)
+    assert [f"src/{n}" for n in native.SOURCES] == rule.split()[-2:]
+
+
+def test_native_build_is_atomic_across_processes(tmp_path):
+    # more processes than cores build and load the engine into one fresh
+    # directory at once: one compiles, every one loads a whole library
+    probe = ("import ctypes, pathlib, sys\n"
+             "from zpaqfranz_tpu_torch import native\n"
+             "native._BUILD_DIR = pathlib.Path(sys.argv[1])\n"
+             "lib = ctypes.CDLL(str(native.ensure_built()))\n"
+             "print(lib.tzs_open is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen([sys.executable, "-c", probe, str(tmp_path)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range((os.cpu_count() or 1) + 1)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0] * len(procs), outs
+    assert all(o.strip() == "True" for o, _ in outs)
+    assert [p.name for p in tmp_path.glob("*.so")] == [
+        native.ensure_built().name]
+    assert not list(tmp_path.glob("*.tmp"))
 
 
 @pytest.mark.parametrize("method", ["3", "4.0", "5.0", "cfg"])

@@ -1,32 +1,28 @@
-// Batched SHA-256 of byte strings for Hopper (sm_90a): one message per thread.
+// Batched SHA-256 of byte strings for Hopper (sm_90a): one message a lane,
+// a pair of warps for 32 lanes, the producer warp staging bytes and
+// expanding the message schedule, the consumer warp running the rounds
+// (csrc/hash_lanes.cuh holds the lanes, the pairs, the staging and the
+// launch; this file the FIPS 180-4 SHA-256 schedule and rounds).
 //
 // Replaces the TPU kernel zpaqfranz_tpu/ops/hash_pallas.py
-// _build_call(nstate=8) (body _make_kernel / _sha256_block), which held the
-// state of an (8, 128) lane tile in VMEM scratch and stepped one 64-byte
-// block per grid step, with long messages chained through a host-side
-// window ladder. As in sha1_lanes.cu, each thread walks its own message's
-// blocks in a loop, so there is no ladder and no host staging: the input is
-// the concatenated message bytes plus per-lane offsets and lengths, and the
-// thread builds the FIPS 180-4 padding (0x80, zeros, 64-bit big-endian bit
-// length) of its last one or two blocks in registers.
+// _build_call(nstate=8) (body _make_kernel / _sha256_block).
 //
-// Bound: 1,384 integer instructions per 64-byte block (64 rounds of 14, 48
-// schedule steps of 10, 8 final adds; 3-input logic is one LOP3 and 3-input
-// adds one IADD3, as chip_smoke.py counts them) against the card's INT32
-// rate, and each input byte read once against 3.35 TB/s. Each thread reads
-// its own message, so loads do not coalesce across a warp; lanes are sorted
-// longest first (the wrapper passes the order) so a warp's threads run
-// similar block counts.
+// Bound (chip_smoke.py): the largest of three terms. Instructions: 1,384
+// per 64-byte block (64 rounds of 14, 48 schedule steps of 10, 8 final
+// adds; 3-input logic is one LOP3 and 3-input adds one IADD3) over the
+// card's INT32 rate. Bytes: each input byte read once over 3.35 TB/s. The
+// chain: a round's critical path is 3 dependent instructions (e's three
+// funnel shifts side by side, the LOP3 of S1 beside ch's, then one IADD3
+// with h + K + w summed off the path; a's path is as long), 193 a block
+// with the final add, at the cycles a dependent instruction takes one lane
+// alone, times the longest lane's blocks. The consumer issues the rounds'
+// 904 instructions a block, the producer the schedule's 480 and the rest.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hash_lanes.cuh"
 
 namespace {
 
-typedef uint8_t u8;
-typedef uint32_t u32;
-typedef int64_t i64;
-typedef uint64_t u64;
+using hash_lanes::u32;
 
 __constant__ u32 K256[64] = {
     0x428a2f98u, 0x71374491u, 0xb5c0fbcfu, 0xe9b5dba5u, 0x3956c25bu,
@@ -47,97 +43,58 @@ __device__ __forceinline__ u32 rotr(u32 x, int k) {
   return __funnelshift_r(x, x, k);
 }
 
-__device__ __forceinline__ u32 load_be(const u8* p) {
-  return (u32(p[0]) << 24) | (u32(p[1]) << 16) | (u32(p[2]) << 8) | u32(p[3]);
-}
+struct Sha256 {
+  static constexpr int NSTATE = 8;
+  static constexpr int WORDS = 64;
 
-__device__ __forceinline__ void compress(u32 st[8], u32 w[16]) {
-  u32 a = st[0], b = st[1], c = st[2], d = st[3];
-  u32 e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-  for (int t = 0; t < 64; ++t) {
-    if (t >= 16) {
-      const u32 x15 = w[(t - 15) & 15], x2 = w[(t - 2) & 15];
-      const u32 s0 = rotr(x15, 7) ^ rotr(x15, 18) ^ (x15 >> 3);
-      const u32 s1 = rotr(x2, 17) ^ rotr(x2, 19) ^ (x2 >> 10);
-      w[t & 15] += s0 + w[(t - 7) & 15] + s1;
-    }
-    const u32 S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
-    const u32 ch = (e & f) ^ (~e & g);
-    const u32 t1 = h + S1 + ch + K256[t] + w[t & 15];
-    const u32 S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
-    const u32 maj = (a & b) ^ (a & c) ^ (b & c);
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + S0 + maj;
+  __device__ static __forceinline__ void init(u32 st[8]) {
+    st[0] = 0x6a09e667u; st[1] = 0xbb67ae85u; st[2] = 0x3c6ef372u;
+    st[3] = 0xa54ff53au; st[4] = 0x510e527fu; st[5] = 0x9b05688cu;
+    st[6] = 0x1f83d9abu; st[7] = 0x5be0cd19u;
   }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
-}
 
-__global__ void sha256_lanes_kernel(const u8* __restrict__ data,
-                                    const i64* __restrict__ off,
-                                    const i64* __restrict__ len,
-                                    const i64* __restrict__ order,
-                                    u32* __restrict__ out, int n) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const i64 lane = order[t];
-  const u8* msg = data + off[lane];
-  const i64 nbytes = len[lane];
-  const i64 full = nbytes >> 6;                 // blocks of message bytes only
-  const i64 nblk = (nbytes + 9 + 63) >> 6;      // with padding
-  u32 st[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u, 0xa54ff53au,
-               0x510e527fu, 0x9b05688cu, 0x1f83d9abu, 0x5be0cd19u};
-  u32 w[16];
-  const bool aligned = ((reinterpret_cast<uintptr_t>(msg)) & 3) == 0;
-  for (i64 blk = 0; blk < full; ++blk) {
-    const u8* p = msg + (blk << 6);
-    if (aligned) {
-      const u32* q = reinterpret_cast<const u32*>(p);
+  // the 64 words of the message schedule, on the producer warp
+  template <class Store>
+  __device__ static __forceinline__ void schedule(u32 w[16], Store store) {
 #pragma unroll
-      for (int k = 0; k < 16; ++k) w[k] = __byte_perm(q[k], 0, 0x0123);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 16; ++k) w[k] = load_be(p + 4 * k);
-    }
-    compress(st, w);
-  }
-  // tail: remaining message bytes, 0x80, zeros, bit length
-  const u64 bits = u64(nbytes) * 8;
-  for (i64 blk = full; blk < nblk; ++blk) {
-    const i64 base = blk << 6;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      u32 v = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const i64 pos = base + 4 * k + q;
-        u32 byte = pos < nbytes ? u32(msg[pos]) : (pos == nbytes ? 0x80u : 0u);
-        v = (v << 8) | byte;
+    for (int t = 0; t < 64; ++t) {
+      if (t >= 16) {
+        const u32 x15 = w[(t - 15) & 15], x2 = w[(t - 2) & 15];
+        const u32 s0 = rotr(x15, 7) ^ rotr(x15, 18) ^ (x15 >> 3);
+        const u32 s1 = rotr(x2, 17) ^ rotr(x2, 19) ^ (x2 >> 10);
+        w[t & 15] += s0 + w[(t - 7) & 15] + s1;
       }
-      w[k] = v;
+      store(t, w[t & 15]);
     }
-    if (blk == nblk - 1) {
-      w[14] = u32(bits >> 32);
-      w[15] = u32(bits);
-    }
-    compress(st, w);
   }
+
+  // the 64 rounds, on the consumer warp
+  template <class Load>
+  __device__ static __forceinline__ void rounds(u32 st[8], Load load) {
+    u32 a = st[0], b = st[1], c = st[2], d = st[3];
+    u32 e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) out[lane * 8 + k] = st[k];
-}
+    for (int t = 0; t < 64; ++t) {
+      const u32 S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+      const u32 ch = (e & f) ^ (~e & g);
+      const u32 t1 = S1 + ch + (h + K256[t] + load(t));
+      const u32 S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+      const u32 maj = (a & b) ^ (a & c) ^ (b & c);
+      h = g; g = f; f = e; e = d + t1;
+      d = c; c = b; b = a; a = t1 + S0 + maj;
+    }
+    st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+    st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+  }
+};
 
 }  // namespace
 
 extern "C" int sha256_lanes_launch(const void* data, const void* off,
                                    const void* len, const void* order,
-                                   void* out, long long n,
+                                   void* out, void* prof, long long n,
+                                   long long nbytes, long long blocks,
                                    void* stream) {
-  if (n < 1 || n > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = int((n + threads - 1) / threads);
-  sha256_lanes_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const u8*)data, (const i64*)off, (const i64*)len, (const i64*)order,
-      (u32*)out, int(n));
-  return (int)cudaGetLastError();
+  return hash_lanes::launch<Sha256>(data, off, len, order, out, prof, n,
+                                    nbytes, blocks, stream);
 }

@@ -220,9 +220,8 @@ def _verify_archive_device(data, jd: Jidac, threads: int,
                            device) -> Tuple[int, int]:
     """Decode blocks on host threads, then hash every fragment that has a
     stored SHA-1 in one launch of the SHA-1 lane kernel on ``device``:
-    the decoded blocks go over as one flat buffer, each fragment a lane
-    (offset, length) into it."""
-    import numpy as np
+    the decoded blocks go over as one flat buffer (staged in pinned host
+    memory), each fragment a lane (offset, length) into it."""
     import torch
 
     from ..ops import sha1
@@ -251,11 +250,10 @@ def _verify_archive_device(data, jd: Jidac, threads: int,
                 lens.append(usize)
             q += usize
         base += len(out)
-    flat = np.frombuffer(b"".join(outs), np.uint8).copy()
+    flat = sha1.stage_bytes(outs, device)
     del outs
     states = sha1.sha1_lanes(
-        torch.from_numpy(flat).to(device),
-        torch.tensor(offs, dtype=torch.int64).to(device),
+        flat, torch.tensor(offs, dtype=torch.int64).to(device),
         torch.tensor(lens, dtype=torch.int64).to(device))
     for j, dig in zip(frag_ids, sha1.to_digests(states)):
         if dig != jd.ht[j].sha1:

@@ -1,4 +1,5 @@
-"""ctypes binding for the native tzpaq host engine (native/libtzpaq.so).
+"""ctypes binding for the native tzpaq host engine (native/src, built by
+``ensure_built``).
 
 The native engine is the fast scalar path: full-archive decode (the Python
 oracle is ~1 KB/s on -m5 models), block compression for the CLI's host mode,
@@ -10,6 +11,9 @@ truth.
 from __future__ import annotations
 
 import ctypes as C
+import fcntl
+import hashlib
+import os
 import pathlib
 import subprocess
 from typing import List, Optional, Tuple
@@ -20,7 +24,11 @@ from .models import tables as T
 
 _ROOT = pathlib.Path(__file__).resolve().parent.parent
 _NATIVE_DIR = _ROOT / "native"
-_SO = _NATIVE_DIR / "libtzpaq.so"
+_BUILD_DIR = _ROOT / "zpaqfranz_tpu_torch" / "build"
+#: the engine's sources and the compiler flags of native/Makefile
+SOURCES = ("tzpaq.cpp", "hashes.cpp")
+CXXFLAGS = ("-O3", "-march=x86-64-v3", "-funroll-loops", "-fPIC",
+            "-std=c++17", "-shared")
 
 _lib = None
 
@@ -46,15 +54,35 @@ def _out_buf(cap: int):
 
 
 def ensure_built() -> pathlib.Path:
-    """Build libtzpaq.so if missing or stale; return its path."""
-    src = _NATIVE_DIR / "src" / "tzpaq.cpp"
-    hdr = _NATIVE_DIR / "src" / "tzpaq.h"
-    if (not _SO.exists()
-            or _SO.stat().st_mtime < max(src.stat().st_mtime,
-                                         hdr.stat().st_mtime)):
-        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                       capture_output=True)
-    return _SO
+    """Build the port's copy of the native engine if it is missing; return
+    its path.
+
+    The library is compiled from the shared sources under ``native/src``
+    with native/Makefile's flags into ``zpaqfranz_tpu_torch/build/``, named
+    by a hash of the sources and flags. One process compiles it under an
+    exclusive file lock, into a temporary file renamed into place, so no
+    process ever loads a library another one is still writing. (The tracked
+    ``native/libtzpaq.so`` is rebuilt in place by the reference package's
+    ``make`` whenever its sources look newer, which a fresh checkout can
+    make true; a process loading it meanwhile fails with "file too
+    short".)"""
+    src = _NATIVE_DIR / "src"
+    h = hashlib.sha1(" ".join(CXXFLAGS).encode())
+    for name in SOURCES + ("tzpaq.h",):
+        h.update((src / name).read_bytes())
+    so = _BUILD_DIR / f"libtzpaq-{h.hexdigest()[:12]}.so"
+    if so.exists():
+        return so
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / "libtzpaq.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            subprocess.run([os.environ.get("CXX", "g++"), *CXXFLAGS, "-o",
+                            str(tmp), *(str(src / n) for n in SOURCES)],
+                           check=True, capture_output=True)
+            os.replace(tmp, so)
+    return so
 
 
 def _load():

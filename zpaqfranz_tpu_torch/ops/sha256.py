@@ -4,9 +4,10 @@ version.
 Replaces the TPU kernel ``zpaqfranz_tpu/ops/hash_pallas.py``
 (``sha256_pallas`` over ``_build_call(nstate=8)``). The kernel is
 ``csrc/sha256_lanes.cu``, the twin of ``csrc/sha1_lanes.cu`` with the
-FIPS 180-4 SHA-256 body: one message per thread, the 64-byte block loop and
-the padding inside the thread, no host window ladder. Inputs and packing
-are those of ``ops/sha1.py`` (one flat ``uint8`` tensor with ``int64``
+FIPS 180-4 SHA-256 body on the same lane machinery (``csrc/hash_lanes.cuh``):
+one message per thread, its bytes staged blocks ahead, the 64-byte block
+loop and the padding inside the thread, no host window ladder. Inputs, the
+launch plan and packing are those of ``ops/sha1.py`` (one flat ``uint8`` tensor with ``int64``
 offsets and lengths); the result is an (N, 8) ``uint32`` state per message,
 which ``sha1.to_digests`` turns into 32-byte big-endian digests.
 
@@ -15,6 +16,8 @@ CPU; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -73,14 +76,15 @@ def sha256_plain(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor
     return plain_lanes(_IV, _compress, data, off, length)
 
 
-def sha256_lanes(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor
-                 ) -> torch.Tensor:
-    """SHA-256 state (N, 8) uint32 of ``data[off[i]:off[i] + length[i]]``."""
+def sha256_lanes(data: torch.Tensor, off: torch.Tensor, length: torch.Tensor,
+                 profile: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SHA-256 state (N, 8) uint32 of ``data[off[i]:off[i] + length[i]]``.
+    ``profile``: see ``sha1.HashLaunch`` (card only)."""
     global launches
     check_lanes(data, off, length)
-    if data.device.type == "cpu":
+    if data.device.type == "cpu" and profile is None:
         return sha256_plain(data, off, length)
-    out = launch_lanes("sha256_lanes", 8, data, off, length)
+    out = launch_lanes("sha256_lanes", 8, data, off, length, profile)
     if off.numel():
         launches += 1
     return out
