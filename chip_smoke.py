@@ -5,11 +5,16 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA sources (``zpaqfranz_tpu_torch/csrc/*.cu``,
-one ``nvcc`` each, all started together, into
-``zpaqfranz_tpu_torch/build/``) with their eleven kernels, and holds each
-kernel bit-exact against its plain PyTorch version: the SHA-1, SHA-256 and
-CM decode and encode kernels on the checks' own lanes (the hash kernels
+It builds the port's six CUDA sources (``zpaqfranz_tpu_torch/csrc/*.cu``)
+with their eleven kernels, and the CM decode and encode kernels once more
+for each HCOMP program of its models that ``ops/hcomp_fast.py``
+specialises (-m3, -m4, -m5 and the all-components model), one ``nvcc``
+each, all started together, into ``zpaqfranz_tpu_torch/build/``, printing
+each build's seconds and registers. It holds each kernel bit-exact against
+its plain PyTorch version: the SHA-1, SHA-256 and CM decode and encode
+kernels on the checks' own lanes (the CM kernels with the specialised
+HCOMP step and again with the interpreter forced, on the same lanes; the
+hash kernels
 also against hashlib at every offset 0..63 at the padding's edge lengths,
 on messages that end on the last byte of a tensor and on the fragment
 shape, 16,384 lanes of ~0.6 GB, each shape timed beside its bound: bytes,
@@ -17,7 +22,8 @@ instructions and the chain of the longest lane, from a profiled lane
 alone; the CM kernels also against the native host engine, with each
 model's placement printed: G threads per lane, lanes per block, shared
 bytes; then one lane per level for its rate and a profiled breakdown of a
-bit), the seven table-access
+bit, with each HCOMP step, beside the interpreter design's), the seven
+table-access
 microbenchmark kernels (``experiments/mb_access.py`` A-E,
 ``experiments/mb_vmem_probe.py`` P1, P2) at every shape their scripts
 time, on the scripts' inputs and on seeded random tables and indices of
@@ -37,8 +43,9 @@ kernel must have launched on its path. Scratch files go to
 ``build/smoke/`` and are removed at the end.
 
 Output: per-phase lines, then one JSON line of kernel measurements (in the
-order: SHA-1, SHA-256, CM decode, CM encode, A-E, P1, P2), the card's name
-and power limit, and last ``{"ok": true, "device": ...}``.
+order: SHA-1, SHA-256, CM decode, CM encode, the specialised HCOMP step in
+the CM decode and encode kernels, A-E, P1, P2), the card's name and power
+limit, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero; so does a machine without a CUDA card, or a
 directory that does not hold the repository.
 """
@@ -125,6 +132,11 @@ CM_NATIVE_LANES = (("4", (8 << 10, 24 << 10, 48 << 10, 64 << 10)),
 # one-lane CM encode rate at -m4 (16 MiB-block widths) of the earlier
 # design, one lane per thread: the yardstick of the group design (PERF.md)
 ONE_THREAD_M4_KBPS = 11.8
+# one-lane rates of the group design with HCOMP always interpreted
+# (PERF.md), KB/s, and its profiled HCOMP cycles per byte and share of a
+# lane
+INTERP_LANE_KBPS = {"3": 82.5, "4": 22.8, "5": 16.4}
+INTERP_HCOMP = {"3": (4721, 20.3), "4": (21827, 25.8), "5": (46772, 38.4)}
 # per-step costs on this card from the table-access microbenchmarks
 # (PERF.md): a dependent L2 access (P1) and a dependent shared-memory step
 # (P2), in ns
@@ -230,28 +242,37 @@ def wall_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def kernel_ms(torch, fn, args, kernel: str, reps: int = 5) -> float:
+def kernel_ms(torch, fn, args, kernel: str, reps: int = 5,
+              tries: int = 3) -> float:
     """Mean device milliseconds of the CUDA kernel named ``kernel`` per
     launch, over ``reps`` calls of ``fn(*args)`` after a warm-up, from
     ``torch.profiler``: the kernel alone, without the wrapper's checks and
-    allocations around it. Fails unless the profiler saw that kernel alone
-    and at most once per call (its trace may drop a record of a long
-    kernel: the mean is over the launches it saw)."""
+    allocations around it. Fails if the profiler saw another kernel of that
+    name or more launches than calls. Its trace may drop records (PERF.md
+    §7): the mean is over the launches it saw, a profile that saw none is
+    taken again, and after ``tries`` such profiles the kernel is timed
+    with CUDA events around the whole calls instead (the wrapper's host
+    work included), which the log says."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if kernel in e.key and e.device_time_total > 0]
-    check(len(hits) == 1 and 1 <= hits[0].count <= reps,
-          f"the profiler saw {[(e.key, e.count) for e in hits]} for "
-          f"{kernel}, want {reps} launches")
-    return hits[0].device_time_total / hits[0].count / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if kernel in e.key and e.device_time_total > 0]
+        check(len(hits) <= 1 and all(e.count <= reps for e in hits),
+              f"the profiler saw {[(e.key, e.count) for e in hits]} for "
+              f"{kernel}, want at most {reps} launches")
+        if hits:
+            return hits[0].device_time_total / hits[0].count / 1e3
+    log(f"  (the profiler saw no launch of {kernel} in {tries} profiles: "
+        f"timed with CUDA events around the calls)")
+    return cuda_ms(torch, lambda: fn(*args), reps)
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -527,16 +548,19 @@ def cm_touch_bytes(model, nbytes: int) -> int:
     return nbytes * (8 * bit + byte)
 
 
-def timed_cm(torch, launch, model, packed) -> tuple:
+def timed_cm(torch, launch, model, packed, hcomp=None) -> tuple:
     """Code through one prepared launch of a CM kernel (``launch`` is
-    ``cm_decode.Launch`` or ``cm_encode.Launch``). Returns the lanes' bytes,
+    ``cm_decode.Launch`` or ``cm_encode.Launch``) with HCOMP step ``hcomp``
+    (None: specialised where the program allows). Returns the lanes' bytes,
     the state set-up's milliseconds (host clock: the arenas' initial rows,
     copied to the card for every lane) and the launch's alone (CUDA
     events)."""
     from zpaqfranz_tpu_torch.ops.cm_model import lanes_to_bytes
 
     t0 = time.perf_counter()
-    job = launch(model, *packed)
+    job = launch(model, *packed, hcomp=hcomp)
+    check(job.hcomp == (hcomp or "fast"),
+          f"the launch runs HCOMP step {job.hcomp}, not {hcomp or 'fast'}")
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
     a = torch.cuda.Event(enable_timing=True)
@@ -585,14 +609,21 @@ def chain_floor_ns(model) -> float:
 
 
 def placement_line(model, name: str) -> str:
-    from zpaqfranz_tpu_torch.ops.cm_model import Placement, table_words
+    """The placement of a launch of ``model`` (its HCOMP step's), beside
+    the interpreter's."""
+    from zpaqfranz_tpu_torch.ops.cm_model import (Placement, hcomp_step,
+                                                  table_words)
 
-    p = Placement(model)
-    tables = 1 + sum(1 for cp in model.comps if table_words(cp))
-    return (f"placement [{name}]: n={model.n}, G={p.G}, "
+    step = hcomp_step(model)
+    p = Placement(model, step)
+    pi = Placement(model)
+    tables = (step == "interp") + sum(1 for cp in model.comps
+                                      if table_words(cp))
+    return (f"placement [{name}], HCOMP {step}: n={model.n}, G={p.G}, "
             f"{p.lanes_per_block} lanes/block, {p.smem} shared bytes/block "
             f"({4 * p.lane_words} per lane), {len(p.shared)} of {tables} "
-            f"tables (H and the u32 tables) in shared memory")
+            f"tables in shared memory (interpreted: {pi.lanes_per_block} "
+            f"lanes/block, {4 * pi.lane_words} bytes per lane with H)")
 
 
 def selector(model) -> bytes:
@@ -621,20 +652,23 @@ def check_cm(torch, np, dev, seed: int) -> dict:
         caps = [len(p) + 4096 for p in pays]
         packed = cmd.pack_streams(streams, caps, dev)
         a, setup_ms, k_ms = timed_cm(torch, cmd.Launch, model, packed)
+        ai, _, ki_ms = timed_cm(torch, cmd.Launch, model, packed, "interp")
         t0 = time.perf_counter()
         plain = cmd.cm_decode_plain(model, *packed)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
         b = cmd.lanes_to_bytes(*plain)
-        err = max(err, byte_err(np, a, b))
+        err = max(err, byte_err(np, a, b), byte_err(np, ai, b))
         check(a == b, f"CM kernel differs from its plain version ({name})")
+        check(ai == a, f"CM kernel's HCOMP steps differ ({name})")
         check(a == [selector(model) + p for p in pays],
               f"CM kernel output is not the coded payload ({name})")
         log(f"cm_decode vs plain [{name}]: {len(pays)} lanes "
             f"{sum(map(len, pays))} bytes, n={model.n}, "
-            f"{cmd.lane_bytes(model)} state bytes/lane: state set-up "
-            f"{setup_ms:.1f} ms, kernel launch {k_ms:.3f} ms, plain "
-            f"{p_ms:.0f} ms, identical")
+            f"{cmd.lane_bytes(model, 'fast')} state bytes/lane "
+            f"({cmd.lane_bytes(model)} interpreted): state set-up "
+            f"{setup_ms:.1f} ms, kernel launch {k_ms:.3f} ms (HCOMP "
+            f"interpreted {ki_ms:.3f} ms), plain {p_ms:.0f} ms, identical")
         if name == "4":
             plain_ms = p_ms
     # kernel vs the native host decode, longer lanes at the main path's
@@ -647,6 +681,8 @@ def check_cm(torch, np, dev, seed: int) -> dict:
         streams = [parse_block_payload(b, 0)[2] for b in blocks]
         packed = cmd.pack_streams(streams, [len(p) + 8192 for p in pays], dev)
         got, setup_ms, k_ms = timed_cm(torch, cmd.Launch, model, packed)
+        gi, _, ki_ms = timed_cm(torch, cmd.Launch, model, packed, "interp")
+        check(gi == got, f"CM kernel's HCOMP steps differ ({name})")
         for g, blk, p in zip(got, blocks, pays):
             with native.NativeStream(blk) as s:
                 host = b"".join(seg.data for seg in s.read_block())
@@ -656,11 +692,13 @@ def check_cm(torch, np, dev, seed: int) -> dict:
                   f"CM kernel differs from the native host decode ({name})")
         out_bytes = sum(map(len, got))
         log(f"cm_decode vs native [{name}]: {len(pays)} lanes "
-            f"{sum(sizes)} bytes, n={model.n}, {cmd.lane_bytes(model)} "
-            f"state bytes/lane: state set-up {setup_ms:.1f} ms, kernel "
-            f"launch {k_ms:.1f} ms ({max(sizes) / k_ms:.2f} KB/s for the "
-            f"longest lane, {cm_touch_bytes(model, 1)} bytes touched per "
-            f"decoded byte), identical")
+            f"{sum(sizes)} bytes, n={model.n}, "
+            f"{cmd.lane_bytes(model, 'fast')} state bytes/lane: state set-up "
+            f"{setup_ms:.1f} ms, kernel launch {k_ms:.1f} ms "
+            f"({max(sizes) / k_ms:.2f} KB/s for the longest lane; HCOMP "
+            f"interpreted {ki_ms:.1f} ms, {max(sizes) / ki_ms:.2f} KB/s; "
+            f"{cm_touch_bytes(model, 1)} bytes touched per decoded byte), "
+            f"identical")
         if name == "4":
             timing = (model, sum(map(len, streams)), out_bytes, k_ms)
     model, in_bytes, out_bytes, ms = timing
@@ -689,21 +727,23 @@ def check_cm_encode(torch, np, dev, seed: int) -> dict:
         pays = lane_payloads(np, rng, CM_PLAIN_SIZES)
         packed = cme.pack_payloads([selector(model) + p for p in pays], dev)
         a, setup_ms, k_ms = timed_cm(torch, cme.Launch, model, packed)
+        ai, _, ki_ms = timed_cm(torch, cme.Launch, model, packed, "interp")
         t0 = time.perf_counter()
         plain = cme.cm_encode_plain(model, *packed)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
         b = cmd.lanes_to_bytes(*plain)
-        err = max(err, byte_err(np, a, b))
+        err = max(err, byte_err(np, a, b), byte_err(np, ai, b))
         check(a == b, f"CM encode kernel differs from its plain version "
               f"({name})")
+        check(ai == a, f"CM encode kernel's HCOMP steps differ ({name})")
         check(a == [coded_stream(model, p)[:-6] for p in pays],
               f"CM encode kernel differs from the native engine ({name})")
         log(f"cm_encode vs plain [{name}]: {len(pays)} lanes "
             f"{sum(map(len, pays))} bytes -> {sum(map(len, a))} coded, "
             f"n={model.n}: state set-up {setup_ms:.1f} ms, kernel launch "
-            f"{k_ms:.3f} ms, plain {p_ms:.0f} ms, identical to plain and "
-            f"native")
+            f"{k_ms:.3f} ms (HCOMP interpreted {ki_ms:.3f} ms), plain "
+            f"{p_ms:.0f} ms, identical to plain and native")
         if name == "4":
             plain_ms = p_ms
     # kernel vs the native engine, longer lanes at the main path's widths;
@@ -714,21 +754,25 @@ def check_cm_encode(torch, np, dev, seed: int) -> dict:
         pays = [selector(model) + p for p in lane_payloads(np, rng, sizes)]
         packed = cme.pack_payloads(pays, dev)
         got, setup_ms, k_ms = timed_cm(torch, cme.Launch, model, packed)
+        gi, _, ki_ms = timed_cm(torch, cme.Launch, model, packed, "interp")
         want = [coded_stream(model, p[len(selector(model)):])[:-6]
                 for p in pays]
-        check(got == want,
+        check(got == want and gi == want,
               f"CM encode kernel differs from the native engine ({name})")
         in_bytes = sum(map(len, pays))
         log(f"cm_encode vs native [{name}]: {len(pays)} lanes {in_bytes} "
             f"bytes -> {sum(map(len, got))} coded, n={model.n}: state set-up "
             f"{setup_ms:.1f} ms, kernel launch {k_ms:.1f} ms "
-            f"({max(map(len, pays)) / k_ms:.2f} KB/s for the longest lane), "
-            f"identical")
+            f"({max(map(len, pays)) / k_ms:.2f} KB/s for the longest lane; "
+            f"HCOMP interpreted {ki_ms:.1f} ms, "
+            f"{max(map(len, pays)) / ki_ms:.2f} KB/s), identical")
         if name == "4":
             timing = (model, in_bytes, sum(map(len, got)), k_ms)
             top = max(map(len, pays))
             log(f"-m4 one lane: {top / k_ms:.2f} KB/s per lane, "
-                f"{k_ms * 1e3 / (8 * top):.3f} us per bit (one lane per "
+                f"{k_ms * 1e3 / (8 * top):.3f} us per bit (HCOMP "
+                f"interpreted: {top / ki_ms:.2f} KB/s, "
+                f"{top / k_ms / (top / ki_ms):.2f}x; one lane per "
                 f"thread: {ONE_THREAD_M4_KBPS} KB/s, "
                 f"{1e3 / (8 * ONE_THREAD_M4_KBPS):.2f} us per bit; "
                 f"{top / k_ms / ONE_THREAD_M4_KBPS:.2f}x); chain floor of "
@@ -751,37 +795,118 @@ def check_cm_encode(torch, np, dev, seed: int) -> dict:
 CM_PROFILE_LANES = (("3", 4 << 10), ("4", 16 << 10), ("5", 16 << 10))
 
 
-def profile_cm(torch, np, dev, seed: int) -> None:
-    """One lane per model through the CM encode kernel: its rate (CUDA
-    events, a launch of its own) and, from a profiled launch of the same
-    lane (``LaneLaunch(profile=True)``: thread 0's clock counters per
-    phase), the cycles of a bit in each phase and HCOMP's cycles per byte
-    and share of the lane's time. Both launches must code as the native
-    engine does."""
-    from zpaqfranz_tpu_torch.ops import cm_encode as cme
-    from zpaqfranz_tpu_torch.ops.cm_model import PROFILE
-    from zpaqfranz_tpu_torch.ops.cm_model import lanes_to_bytes
+def profile_cm(torch, np, dev, seed: int) -> dict:
+    """One lane per model through the CM encode kernel, with the
+    specialised HCOMP step and with the interpreter: its rate (CUDA events,
+    a launch of its own) and, from a profiled launch of the same lane
+    (``LaneLaunch(profile=True)``: thread 0's clock counters per phase),
+    the cycles of a bit in each phase and HCOMP's cycles per byte and share
+    of the lane's time, beside the interpreter design's (PERF.md). Every
+    launch must code as the native engine does. At -m4 also the decode
+    kernel and the plain HCOMP step (``FastHcomp.run`` over the lane's
+    bytes, on the CPU): returns the specialised HCOMP step's measurements
+    in the two kernels there."""
+    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+    from zpaqfranz_tpu_torch.ops.cm_model import PROFILE, lanes_to_bytes
+    from zpaqfranz_tpu_torch.ops.hcomp_fast import try_compile
 
     rng = np.random.default_rng(seed)
     models = cm_models()
+    out = {}
+
+    def profiled(launch, model, packed, hcomp, want) -> tuple:
+        got, _, ms = timed_cm(torch, launch, model, packed, hcomp)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        job = launch(model, *packed, profile=True, hcomp=hcomp)
+        a.record()
+        job.run()
+        b.record()
+        torch.cuda.synchronize()
+        check(got == want and lanes_to_bytes(*job.result()) == want,
+              f"CM kernel differs from the native engine ({hcomp})")
+        prof = dict(zip(PROFILE, job.profile()[0].tolist()))
+        return ms, a.elapsed_time(b), prof
+
     for name, size in CM_PROFILE_LANES:
         model = models[name]
         pay = lane_payloads(np, rng, [size])[0]
-        want = [coded_stream(model, pay)[:-6]]
+        stream = coded_stream(model, pay)
         packed = cme.pack_payloads([selector(model) + pay], dev)
-        got, _, ms = timed_cm(torch, cme.Launch, model, packed)
-        job = cme.Launch(model, *packed, profile=True).run()
-        check(got == want and lanes_to_bytes(*job.result()) == want,
-              f"CM encode kernel differs from the native engine ({name})")
-        prof = dict(zip(PROFILE, job.profile()[0].tolist()))
-        bits, nbytes = prof.pop("bits"), prof.pop("bytes")
-        total = sum(prof.values())
-        log(f"-m{name} one lane of {len(pay)} bytes: {len(pay) / ms:.2f} "
-            f"KB/s, {ms * 1e3 / (8 * len(pay)):.3f} us per bit; profiled: "
-            f"{total / bits:.0f} cycles per bit = "
-            + " + ".join(f"{k} {v / bits:.0f}" for k, v in prof.items())
-            + f"; HCOMP {prof['hcomp'] / nbytes:.0f} cycles per byte "
-            f"({100 * prof['hcomp'] / total:.1f}% of the lane)")
+        rates = {}
+        for hcomp in ("fast", "interp"):
+            ms, prof_ms, prof = profiled(cme.Launch, model, packed, hcomp,
+                                         [stream[:-6]])
+            bits, nbytes = prof.pop("bits"), prof.pop("bytes")
+            total = sum(prof.values())
+            rates[hcomp] = len(pay) / ms
+            log(f"-m{name} one lane of {len(pay)} bytes, HCOMP {hcomp}: "
+                f"{len(pay) / ms:.2f} KB/s, {ms * 1e3 / (8 * len(pay)):.3f} "
+                f"us per bit; profiled: {total / bits:.0f} cycles per bit = "
+                + " + ".join(f"{k} {v / bits:.0f}" for k, v in prof.items())
+                + f"; HCOMP {prof['hcomp'] / nbytes:.0f} cycles per byte "
+                f"({100 * prof['hcomp'] / total:.1f}% of the lane; "
+                f"interpreter design: {INTERP_HCOMP[name][0]}, "
+                f"{INTERP_HCOMP[name][1]}%)")
+            if name == "4" and hcomp == "fast":
+                out["cm_encode"] = (prof_ms * prof["hcomp"] / total,
+                                    prof["hcomp"] / nbytes,
+                                    total / prof_ms / 1e6)
+        log(f"-m{name} one lane: {rates['fast']:.2f} KB/s specialised, "
+            f"{rates['interp']:.2f} interpreted "
+            f"({rates['fast'] / rates['interp']:.2f}x); interpreter "
+            f"design {INTERP_LANE_KBPS[name]} KB/s")
+        if name == "4":
+            streams = cmd.pack_streams([stream], [len(pay) + 64], dev)
+            ms, prof_ms, prof = profiled(cmd.Launch, model, streams, "fast",
+                                         [selector(model) + pay])
+            nbytes = prof.pop("bytes")
+            prof.pop("bits")
+            total = sum(prof.values())
+            out["cm_decode"] = (prof_ms * prof["hcomp"] / total,
+                                prof["hcomp"] / nbytes, total / prof_ms / 1e6)
+            fh = try_compile(model)
+            byte = torch.frombuffer(bytearray(selector(model) + pay),
+                                    dtype=torch.uint8).long()[:, None]
+            st = fh.init_state(1)
+            t0 = time.perf_counter()
+            for j in range(byte.shape[0]):
+                st = fh.run(st, byte[j])
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            out["plain"] = (plain_ms, byte.shape[0], fh)
+            log(f"-m4 HCOMP specialised: {fh.ops} integer operations and a "
+                f"chain of {fh.chain} a byte (ops/hcomp_fast.py); in the "
+                f"kernels {out['cm_encode'][1]:.0f} (encode) and "
+                f"{out['cm_decode'][1]:.0f} (decode) cycles a byte; plain "
+                f"version {plain_ms / byte.shape[0] * 1e3:.1f} us a byte")
+    return out
+
+
+def hcomp_entries(prof: dict, errs: dict) -> list:
+    """The JSON lines of the specialised HCOMP step in the two CM kernels:
+    its time in the -m4 one-lane profile (HCOMP's profiled share of the
+    launch), the plain version's over the same bytes, and its bound: the
+    bytes it must read and write (the lane's bytes, n contexts a byte) or
+    its counted integer operations; the chain of its dependent operations
+    at 4 cycles each, one byte after another, is printed beside it."""
+    plain_ms, nbytes, fh = prof["plain"]
+    out = []
+    for kernel in ("cm_decode", "cm_encode"):
+        ms, cycles, ghz = prof[kernel]
+        b_ms, b_by = bound(nbytes * (1 + 4 * fh.n), nbytes * fh.ops)
+        chain_ms = nbytes * fh.chain * 4 / ghz / 1e6
+        log(f"{kernel}_hcomp_fast: -m4, {nbytes} bytes: {ms:.3f} ms in the "
+            f"kernel ({cycles:.0f} cycles a byte at {ghz:.3f} GHz), bound "
+            f"{b_ms:.5f} ms ({b_by}), chain floor {chain_ms:.4f} ms "
+            f"({fh.chain} dependent operations a byte), plain {plain_ms:.0f} "
+            f"ms")
+        out.append({"name": f"{kernel}_hcomp_fast", "route": "cuda",
+                    "source": "zpaqfranz_tpu_torch/ops/hcomp_fast.py",
+                    "replaces": "zpaqfranz_tpu/ops/hcomp_fast.py:354",
+                    "max_abs_err": errs[kernel], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1155,18 +1280,31 @@ def main() -> int:
     from zpaqfranz_tpu_torch.device import resolve
     from zpaqfranz_tpu_torch.ops import build, cm_decode as cmd
     from zpaqfranz_tpu_torch.ops import cm_encode as cme, sha1, sha256
+    from zpaqfranz_tpu_torch.ops.hcomp_fast import try_compile
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = resolve(None)
 
     t0 = time.perf_counter()
-    build.build()
-    log(f"built {', '.join(build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    for name, rec in build.BUILD_LOG.items():
+    labels = {}
+    for name, model in cm_models().items():
+        for kernel in ("cm_decode", "cm_encode"):
+            unit = (kernel, try_compile(model).cuda_source())
+            labels.setdefault(build.unit_key(unit), (unit, []))[1].append(
+                name)
+    build.build(list(build.SOURCES) + [u for u, _ in labels.values()])
+    log(f"built {', '.join(build.SOURCES)} and the CM kernels of "
+        f"{len(labels) // 2} specialised HCOMP programs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for key, rec in build.BUILD_LOG.items():
+        name = key if key not in labels else (
+            f"{key.split('+')[0]} HCOMP specialised for "
+            f"{'/'.join(labels[key][1])}")
+        log(f"  {name}: {rec['seconds']:.1f} s")
         for line in str(rec["ptxas"]).splitlines():
             if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"    {line.strip()}")
 
     kernels = []
     for fn, seed in ((lambda s: check_hash(torch, np, dev, s, "sha1"), 1),
@@ -1179,7 +1317,8 @@ def main() -> int:
         log(f"  ({kernels[-1]['name']} checks took "
             f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    profile_cm(torch, np, dev, 8)
+    kernels += hcomp_entries(profile_cm(torch, np, dev, 8),
+                             {k["name"]: k["max_abs_err"] for k in kernels})
     log(f"  (CM one-lane rates and profiles took "
         f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
@@ -1194,6 +1333,8 @@ def main() -> int:
                "cm_encode": cme}
     for mod in modules.values():
         mod.launches = 0
+    for mod in (cmd, cme):
+        mod.hcomp_launches.update(fast=0, interp=0)
     try:
         runs = [main_path(torch, np, dev, "4", M4_BYTES, 4, damage=False),
                 main_path(torch, np, dev, "3", M3_BYTES, 3, damage=True),
@@ -1201,6 +1342,11 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     counts = {name: mod.launches for name, mod in modules.items()}
+    for name, mod in (("cm_decode", cmd), ("cm_encode", cme)):
+        counts[f"{name}_hcomp_fast"] = mod.hcomp_launches["fast"]
+        check(mod.hcomp_launches == {"fast": mod.launches, "interp": 0},
+              f"the main path's {name} launches did not all run the "
+              f"specialised HCOMP step: {mod.hcomp_launches}")
     log(f"main path launches: {counts}")
     t0 = time.perf_counter()
     micro_counts = measurement_path(torch, dev)

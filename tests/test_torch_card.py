@@ -521,3 +521,137 @@ def test_ladder_codec_stage_on_card(card):
     st = device_bench.run_ladder(ladder=[("codec", "3", 64, 512)])
     assert st["cm_3_L64"]["ok"]
     assert cme.launches == before[0] + 2 and cmd.launches == before[1] + 2
+
+
+# ---------------------------------------------------------------------------
+# the HCOMP step: the specialised program against the interpreter
+
+
+def _prefix(ref):
+    blob = ref.pcomp_bytes()
+    return (b"\x01" + blob) if blob else b"\x00"
+
+
+def _both_steps(card, ref, model, raws):
+    """Encode and decode ``raws`` with the specialised HCOMP step and with
+    the interpreter forced: both steps give the native engine's coded
+    segments and restore the payloads. Returns the launches' steps."""
+    prefix = _prefix(ref)
+    packed = cme.pack_payloads([prefix + r for r in raws], card)
+    coded = _coded(ref, raws)
+    streams = cmd.pack_streams(coded, [len(prefix) + len(r) + 64
+                                       for r in raws], card)
+    steps = []
+    for hcomp in (None, "interp"):
+        enc = cme.Launch(model, *packed, hcomp=hcomp).run()
+        dec = cmd.Launch(model, *streams, hcomp=hcomp).run()
+        assert cmd.lanes_to_bytes(*enc.result()) == [c[:-6] for c in coded]
+        assert cmd.lanes_to_bytes(*dec.result()) == [prefix + r
+                                                     for r in raws]
+        steps.append((enc.hcomp, dec.hcomp))
+    return steps
+
+
+@pytest.mark.parametrize("method", ["3", "4", "5", "4.0", "5.0"])
+@pytest.mark.parametrize("count", ["1", "lpb", "lpb+1"])
+def test_cm_hcomp_fast_equals_interp(card, method, count):
+    """At 1 lane, one block's lanes and one lane into a second block (lanes
+    per block from the specialised launch's placement), the specialised
+    HCOMP step and the interpreter code and decode every lane as the host
+    engine does."""
+    ref, _ = ref_make_model(method)
+    model = convert.model_from_reference_header(ref.header_bytes())
+    lpb = Placement(model, "fast").lanes_per_block
+    L = {"1": 1, "lpb": lpb, "lpb+1": lpb + 1}[count]
+    rng = np.random.default_rng(L)
+    raws = [b"Lane %d: " % k + b"The Cat sat on the mat, " * int(k % 3)
+            + rng.integers(0, 256, int(k % 5), dtype=np.uint8).tobytes()
+            for k in range(L)]
+    before = dict(cme.hcomp_launches)
+    assert _both_steps(card, ref, model, raws) == [("fast", "fast"),
+                                                   ("interp", "interp")]
+    assert cme.hcomp_launches["fast"] == before["fast"] + 1
+    assert cme.hcomp_launches["interp"] == before["interp"] + 1
+
+
+def test_cm_rejected_program_runs_the_interpreter(card):
+    """A looping program is outside the specialisable subset: a launch
+    runs the interpreter, and asking for the specialised step raises."""
+    ref = ref_compile(LOOP_CFG)[0]
+    model = convert.model_from_reference_header(ref.header_bytes())
+    assert _both_steps(card, ref, model, [b"a", b"loop!", b"\x00\xff"]) \
+        == [("interp", "interp")] * 2
+    with pytest.raises(ValueError, match="specialisable"):
+        cme.Launch(model, *cme.pack_payloads([b"\x00a"], card),
+                   hcomp="fast")
+
+
+# HCOMP of 3 * 2^23 + 10 instructions a byte: past the kernels' default
+# limit of 2^24, within 2^25
+LONG_CFG = """
+comp 1 0 0 0 2
+  0 cm 16 4
+  1 cm 12 4
+hcomp
+  c=a a= 128 a<<= 16
+  do a-- a> 0 while
+  a=c a<<= 8 d= 0 *d=a
+  a=c d= 1 *d=a
+  halt
+post 0 end
+"""
+
+
+def test_cm_hcomp_step_limit_per_call(card):
+    """The runaway program fails under the default limit; one that needs
+    more than 2^24 instructions a byte fails under it too and codes and
+    decodes with a raised ``max_hcomp_steps``, at every layer that takes
+    it."""
+    from zpaqfranz_tpu_torch.parallel import engine
+
+    ref = ref_compile(LONG_CFG)[0]
+    model = convert.model_from_reference_header(ref.header_bytes())
+    raws = [b"ab"]
+    coded = _coded(ref, raws)
+    streams = cmd.pack_streams(coded, [64], card)
+    with pytest.raises(cmd.CMDecodeError, match="HCOMP program faulted"):
+        cmd.cm_decode(model, *streams)
+    with pytest.raises(cme.CMEncodeError, match="HCOMP program faulted"):
+        cme.cm_encode(model, *cme.pack_payloads([b"\x00ab"], card))
+    more = 1 << 25
+    assert cmd.lanes_to_bytes(*cmd.cm_decode(
+        model, *streams, max_hcomp_steps=more)) == [b"\x00ab"]
+    assert engine.decode_streams(model, coded, [64], card,
+                                 max_hcomp_steps=more) == [b"\x00ab"]
+    assert engine.encode_streams(model, [b"\x00ab"], card,
+                                 max_hcomp_steps=more) == [coded[0][:-6]]
+    runaway = convert.model_from_reference_header(
+        ref_compile(RUNAWAY_CFG)[0].header_bytes())
+    with pytest.raises(cmd.CMDecodeError, match="HCOMP program faulted"):
+        cmd.cm_decode(runaway, *streams, max_hcomp_steps=1000)
+
+
+def test_verify_runs_in_several_launches(card, tmp_path, monkeypatch):
+    """``t`` with a batch budget of one byte: one launch per block, the
+    counts of one launch, and a bad fragment checksum still found."""
+    from zpaqfranz_tpu_torch.jidac import extract as ex
+
+    monkeypatch.chdir(tmp_path)
+    arc = tmp_path / "m.zpaq"
+    for k in range(3):
+        (tmp_path / f"s{k}").mkdir()
+        (tmp_path / f"s{k}" / "f").write_bytes(b"block %d " % k * 500)
+        add(str(arc), [f"s{k}"], method="1", date=DATE + k,
+            use_device=False)
+    data = arc.read_bytes()
+    jd = read_archive(data)
+    assert len(jd.block) == 3
+    want = verify_archive(data, jd)
+    monkeypatch.setattr(ex, "VERIFY_BATCH_BYTES", 1)
+    before = sha1.launches
+    assert verify_archive(data, jd) == want
+    assert sha1.launches == before + 3
+    j = jd.block[1].start
+    jd.ht[j].sha1 = b"\x01" * 20
+    with pytest.raises(ex.ExtractError, match=f"fragment {j}: checksum"):
+        verify_archive(data, jd)

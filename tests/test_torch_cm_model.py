@@ -147,3 +147,43 @@ def test_kernel_state(name):
     h = 0 if plan.geo["ht"] >= 0 else 4 << model.hh
     assert cm.lane_bytes(model) == plan.s8 + 4 * cm.Layout(model).s32 + h \
         + (1 << model.hm) + 4 * 256
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_specialised_plan_has_no_h_and_no_m(name):
+    """A launch whose HCOMP program is specialised places no H table and
+    allocates neither H, M nor ZPAQL R: its lanes need fewer bytes, and its
+    blocks hold at least as many lanes. Both plans stay within the
+    kernels' compiled thread limit."""
+    model = _model(name)
+    step = cm.hcomp_step(model)
+    assert step == ("interp" if name in ("wide", "big") else "fast")
+    interp = cm.Placement(model)
+    assert interp.hcomp == "interp"
+    for plan in (interp, cm.Placement(model, step)):
+        assert plan.lanes_per_block * plan.G <= cm.MAX_BLOCK_THREADS
+    if step == "interp":
+        with pytest.raises(ValueError, match="specialisable"):
+            cm.hcomp_step(model, "fast")
+        return
+    fast = cm.Placement(model, "fast")
+    assert -1 not in fast.shared and fast.geo["ht"] == -1
+    assert set(fast.shared) >= set(interp.shared) - {-1}
+    assert fast.lane_words <= interp.lane_words
+    assert fast.lanes_per_block >= interp.lanes_per_block
+    lay = cm.Layout(model)
+    assert cm.lane_bytes(model, "fast") == fast.s8 + 4 * lay.s32
+    assert cm.lane_bytes(model, "fast") <= cm.lane_bytes(model) \
+        - (1 << model.hm) - 1024
+    a8, a32, hmem, mmem = cm.kernel_state(model, fast, 3, "cpu")
+    assert hmem is None and mmem is None
+    assert a8.shape == (3, fast.s8) and a32.shape == (3, lay.s32)
+
+
+def test_hcomp_step_names():
+    model = _model("3")
+    assert cm.hcomp_step(model, "interp") == "interp"
+    with pytest.raises(ValueError, match="hcomp must be"):
+        cm.hcomp_step(model, "vm")
+    with pytest.raises(ValueError, match="hcomp must be"):
+        cm.Placement(model, "vm")

@@ -292,8 +292,10 @@ def sum_lines(paths: Sequence, algo: str, use_device: bool = True,
     """``DIGEST  path`` lines of ``sum`` for ``paths``. SHA-1 and SHA-256
     hash every file as one lane of the SHA-1 / SHA-256 lane kernel on
     ``device`` (None = the CUDA card, which must be present; "cpu" = the
-    plain PyTorch versions), in launches of up to ``SUM_BATCH_BYTES``;
-    ``use_device=False`` and the other algorithms use the native hashers."""
+    plain PyTorch versions), in launches of up to ``SUM_BATCH_BYTES``; a
+    file larger than a launch takes (``sha1.MAX_DATA``) goes to the native
+    hasher, which gives the same digest. ``use_device=False`` and the
+    other algorithms use the native hashers."""
     if not (use_device and algo in ("sha1", "sha256")):
         return [f"{_hash_one(algo, pathlib.Path(p).read_bytes())}  {p}"
                 for p in paths]
@@ -314,9 +316,13 @@ def sum_lines(paths: Sequence, algo: str, use_device: bool = True,
 
     for p in paths:
         data = pathlib.Path(p).read_bytes()
-        if datas and size + len(data) > SUM_BATCH_BYTES:
+        if datas and (size + len(data) > SUM_BATCH_BYTES
+                      or len(data) > sha1.MAX_DATA):
             flush()
             size = 0
+        if len(data) > sha1.MAX_DATA:
+            lines.append(f"{_hash_one(algo, data)}  {p}")
+            continue
         batch.append(p)
         datas.append(data)
         size += len(data)

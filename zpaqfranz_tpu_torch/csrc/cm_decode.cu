@@ -2,7 +2,7 @@
 //
 // Replaces the TPU device program zpaqfranz_tpu/ops/codec_arena.py
 // (ArenaDecoder.init_state/run over ArenaCoder.byte_step) together with its
-// HCOMP step. The model (predictor phases, update, ZPAQL interpreter, the
+// HCOMP step. The model (predictor phases, update, HCOMP step, the
 // shared-memory placement and the design note on what bounds it) is shared
 // with the encoder in cm_model.cuh; this file holds the range decoder and
 // the kernel.
@@ -16,6 +16,15 @@
 #include "cm_model.cuh"
 
 namespace {
+
+// The HCOMP step: the interpreter, or the program that ops/build.py
+// compiles in from a header generated by ops/hcomp_fast.py (struct
+// HcompFast, defined with CM_HCOMP_FAST before this file is included).
+#ifdef CM_HCOMP_FAST
+typedef FastStep<HcompFast> Step;
+#else
+typedef Interp Step;
+#endif
 
 struct Dec {
   u32 low, high, curr;
@@ -39,15 +48,18 @@ __device__ __forceinline__ int decode_bit(Dec& d, int& status, u32 p) {
   return y;
 }
 
-__global__ void cm_decode_kernel(CM_LANE_PARAMS) {
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+    cm_decode_kernel(CM_LANE_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Model m = load_model(smem, comps, cplan, off8, off32, n, hcomp,
-                             hlen, hh, hm, lut);
+                             hlen, hh, hm, max_steps, lut);
   Lane s;
   int lane;
   if (!init_lane(s, m, smem, G, lpb, lane_words, geo, L, a8, s8, a32, s32,
                  hmem, mmem, rmem, hh, hm, prof, &lane))
     return;
+  Step step;
+  step.init();
   const bool lead = s.k == 0;
   u8* dst = out + out_off[lane];
   const i64 cap = out_cap[lane];
@@ -90,7 +102,7 @@ __global__ void cm_decode_kernel(CM_LANE_PARAMS) {
     if (go != 0) break;
     u32 c = 1;
     while (c < 256) {
-      const int y = code_bit(s, m, [&](u32 pr) {
+      const int y = code_bit(s, m, step, [&](u32 pr) {
         return decode_bit(d, s.status, pr);
       });
       if (s.status != ST_OK) break;
@@ -112,7 +124,8 @@ extern "C" {
 
 int cm_decode_launch(const void* comps, const void* cplan, const void* off8,
                      const void* off32, long long n, const void* hcomp,
-                     long long hlen, long long hh, long long hm, long long G,
+                     long long hlen, long long hh, long long hm,
+                     long long max_steps, long long G,
                      long long lpb, long long blocks, long long lane_words,
                      const void* geo, const void* lut, const void* in,
                      const void* in_off, const void* in_len, void* a8,
@@ -121,7 +134,8 @@ int cm_decode_launch(const void* comps, const void* cplan, const void* off8,
                      const void* out_cap, void* out_len, void* status,
                      void* prof, long long L, void* stream) {
   return launch_lanes(cm_decode_kernel, comps, cplan, off8, off32, int(n),
-                      hcomp, int(hlen), int(hh), int(hm), int(G), int(lpb),
+                      hcomp, int(hlen), int(hh), int(hm), u64(max_steps),
+                      int(G), int(lpb),
                       int(blocks), int(lane_words), geo, lut, in, in_off,
                       in_len, a8, s8, a32, s32, hmem, mmem, rmem, out,
                       out_off, out_cap, out_len, status, prof, int(L),

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU device program zpaqfranz_tpu/ops/codec_arena.py
 // (ArenaEncoder.init_state/run over ArenaCoder.byte_step). The model
-// (predictor phases, update, ZPAQL interpreter, the shared-memory placement
+// (predictor phases, update, HCOMP step, the shared-memory placement
 // and the design note on what bounds it) is shared with the decoder in
 // cm_model.cuh; this file holds the range encoder and the kernel.
 //
@@ -18,6 +18,15 @@
 #include "cm_model.cuh"
 
 namespace {
+
+// The HCOMP step: the interpreter, or the program that ops/build.py
+// compiles in from a header generated by ops/hcomp_fast.py (struct
+// HcompFast, defined with CM_HCOMP_FAST before this file is included).
+#ifdef CM_HCOMP_FAST
+typedef FastStep<HcompFast> Step;
+#else
+typedef Interp Step;
+#endif
 
 struct Enc {
   u32 low, high;
@@ -39,15 +48,18 @@ __device__ __forceinline__ void encode_bit(Enc& e, int& status, int y,
   }
 }
 
-__global__ void cm_encode_kernel(CM_LANE_PARAMS) {
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+    cm_encode_kernel(CM_LANE_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Model m = load_model(smem, comps, cplan, off8, off32, n, hcomp,
-                             hlen, hh, hm, lut);
+                             hlen, hh, hm, max_steps, lut);
   Lane s;
   int lane;
   if (!init_lane(s, m, smem, G, lpb, lane_words, geo, L, a8, s8, a32, s32,
                  hmem, mmem, rmem, hh, hm, prof, &lane))
     return;
+  Step step;
+  step.init();
   const bool lead = s.k == 0;
   const u8* src = in + in_off[lane];
   const i64 len = in_len[lane];
@@ -63,7 +75,7 @@ __global__ void cm_encode_kernel(CM_LANE_PARAMS) {
     const u32 c = src[j];
     for (int k = 7; k >= 0 && s.status == ST_OK; --k) {
       const int y = (c >> k) & 1;
-      code_bit(s, m, [&](u32 pr) {
+      code_bit(s, m, step, [&](u32 pr) {
         if (first) encode_bit(e, s.status, 0, 0);   // not the end of segment
         if (s.status == ST_OK) encode_bit(e, s.status, y, pr);
         return y;
@@ -85,7 +97,8 @@ extern "C" {
 
 int cm_encode_launch(const void* comps, const void* cplan, const void* off8,
                      const void* off32, long long n, const void* hcomp,
-                     long long hlen, long long hh, long long hm, long long G,
+                     long long hlen, long long hh, long long hm,
+                     long long max_steps, long long G,
                      long long lpb, long long blocks, long long lane_words,
                      const void* geo, const void* lut, const void* in,
                      const void* in_off, const void* in_len, void* a8,
@@ -94,7 +107,8 @@ int cm_encode_launch(const void* comps, const void* cplan, const void* off8,
                      const void* out_cap, void* out_len, void* status,
                      void* prof, long long L, void* stream) {
   return launch_lanes(cm_encode_kernel, comps, cplan, off8, off32, int(n),
-                      hcomp, int(hlen), int(hh), int(hm), int(G), int(lpb),
+                      hcomp, int(hlen), int(hh), int(hm), u64(max_steps),
+                      int(G), int(lpb),
                       int(blocks), int(lane_words), geo, lut, in, in_off,
                       in_len, a8, s8, a32, s32, hmem, mmem, rmem, out,
                       out_off, out_cap, out_len, status, prof, int(L),

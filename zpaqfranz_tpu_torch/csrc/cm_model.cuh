@@ -50,12 +50,19 @@
 //   state tables are shared by the block (stretch as its lower half, the
 //   table being odd about its middle).
 // - At a byte's end MATCH's length search compares G positions at a time
-//   (__ballot_sync) and HCOMP runs on thread 0 (a full ZPAQL interpreter,
-//   every opcode, jumps and LJ included, H in shared memory when placed).
+//   (__ballot_sync) and HCOMP runs on thread 0. The HCOMP step is a policy
+//   of the kernels (template parameter Step): FastStep runs the model's
+//   program as straight-line code that ops/hcomp_fast.py generates (the
+//   port of zpaqfranz_tpu/ops/hcomp_fast.py): the last bytes in thread 0's
+//   registers as a window, the contexts written straight into the lane's
+//   h, no H and no M, no loads but the old contexts. Interp is a full ZPAQL
+//   interpreter (every opcode, jumps and LJ included, H in shared memory
+//   when placed, M in device memory) for the programs the specialiser
+//   rejects, with a per-launch step limit.
 //
 // What bounds it now: the chain of dependent instructions on thread 0 (the
-// combine) and HCOMP's interpreter, each about a quarter to a third of a
-// bit at -m4 (PERF.md; chip_smoke.py prints the profiled phases).
+// combine), then HCOMP where it is interpreted (PERF.md; chip_smoke.py
+// prints the profiled phases).
 
 #pragma once
 
@@ -82,9 +89,10 @@ constexpr int SNS_OFF = 4096 + 32768;
 constexpr int MAXC = 256;
 constexpr int NPAR = 6;    // comp params: type p1..p5
 constexpr int SMEM_LIMIT = 232448;   // shared bytes one block may use
-// A HCOMP run that executes more instructions than this for one byte is
-// taken as a runaway program: the lane fails instead of holding the card.
-constexpr u32 MAX_HCOMP_STEPS = 1u << 24;
+// threads one block may have: the kernels are compiled for it
+// (__launch_bounds__), which leaves a thread up to 128 registers; with
+// 1024 a thread would get 64 and the kernels use about 120
+constexpr int MAX_BLOCK_THREADS = 512;
 
 // Placement of one model (ops/cm_model.py Placement.geometry): word offsets
 // of the per-lane arrays inside a lane's shared region. H is at G_HT, or in
@@ -135,6 +143,10 @@ struct Model {
   const u8* code;       // hcomp bytecode
   int n, hlen;
   u32 hmask, mmask;
+  // an interpreted HCOMP run that executes more instructions than this for
+  // one byte is taken as a runaway program: the lane fails instead of
+  // holding the card (ops/cm_model.py MAX_HCOMP_STEPS by default)
+  u64 max_steps;
 };
 
 // One lane as one thread of its group sees it. The arrays are the lane's
@@ -485,8 +497,9 @@ __device__ __forceinline__ void run_hcomp(Lane& s, const Model& m, u32 input) {
   u32 a = input, b = s.b, c = s.c, d = s.d, f = s.f;
   int pc = 0;
   int st = ST_OK;
-  for (u32 steps = 0;; ++steps) {
-    if (pc >= n || steps >= MAX_HCOMP_STEPS) { st = ST_ZPAQL; break; }
+  const u64 max_steps = m.max_steps;
+  for (u64 steps = 0;; ++steps) {
+    if (pc >= n || steps >= max_steps) { st = ST_ZPAQL; break; }
     // the next byte is read with the opcode (the bytecode is padded), so
     // that an operand costs no second dependent read
     const int op = code[pc++];
@@ -596,24 +609,62 @@ __device__ __forceinline__ void run_hcomp(Lane& s, const Model& m, u32 input) {
   if (st != ST_OK) s.status = st;
 }
 
+// The HCOMP step at a byte's end, run by the group's thread 0: Interp
+// interprets the bytecode over H and M and leaves the contexts in H, which
+// the group copies into s.h; FastStep<P> runs the program P generated by
+// ops/hcomp_fast.py (struct HcompFast) and writes s.h itself. Its window
+// of the last 4 * P::words bytes (the most the program reads at c + k)
+// lives in thread 0's registers: the program's offsets are compile-time
+// constants, so a byte is pushed with one funnel shift a word and read
+// with one shift and mask, where a window in shared memory would put a
+// dependent shared-memory access on the chain for every read.
+struct Interp {
+  static constexpr bool fast = false;
+  __device__ __forceinline__ void init() {}
+  __device__ __forceinline__ void run(Lane& s, const Model& m, u32 byte) {
+    run_hcomp(s, m, byte);
+  }
+};
+
+template <class P>
+struct FastStep {
+  static constexpr bool fast = true;
+  u32 w[P::words];
+  u32 c;
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int k = 0; k < P::words; ++k) w[k] = 0;   // M starts as zeros
+    c = 0;
+  }
+  __device__ __forceinline__ void run(Lane& s, const Model&, u32 byte) {
+    P::run(w, c, s.h, byte);
+  }
+};
+
 // After phase (c): the bit's context update, and at a byte's end MATCH's
 // search, HCOMP on thread 0 and the new context hashes (the group in step
 // after it); s.status is the group's.
-__device__ __forceinline__ void tail(Lane& s, const Model& m, int y) {
+template <class Step>
+__device__ __forceinline__ void tail(Lane& s, const Model& m, Step& step,
+                                     int y) {
   s.c8 += s.c8 + u32(y);
   ++s.bit;
   if (s.c8 >= 256) {
     mark(s, P_TAIL);
     if (m.nmatch) match_byte_end(s, m, s.c8 - 256);
+    // FastStep writes s.h in place: every thread is done reading this
+    // byte's contexts (phase (c)'s rows, MATCH's pointer) first
+    if (Step::fast) gsync(s);
     mark(s, P_MATCH);
     if (s.k == 0) {
-      run_hcomp(s, m, s.c8 - 256);
+      step.run(s, m, s.c8 - 256);
       s.misc[2] = u32(s.status);
     }
     mark(s, P_HCOMP);
     gsync(s);
     s.status = int(s.misc[2]);
-    for (int i = s.k; i < m.n; i += s.G) s.h[i] = s.H[i & m.hmask];
+    if (!Step::fast)
+      for (int i = s.k; i < m.n; i += s.G) s.h[i] = s.H[i & m.hmask];
     if (s.prof) ++s.acc[P_BYTES];
     gsync(s);
     mark(s, P_HASH);
@@ -634,8 +685,8 @@ __device__ __forceinline__ void tail(Lane& s, const Model& m, int y) {
 // overlaps other threads' phase (c): the predictions swap buffers every
 // bit, and each thread reads back only the table entries and row copies it
 // wrote itself. Returns the bit; s.status is the group's.
-template <class Coder>
-__device__ __forceinline__ int code_bit(Lane& s, const Model& m,
+template <class Step, class Coder>
+__device__ __forceinline__ int code_bit(Lane& s, const Model& m, Step& step,
                                         Coder&& coder) {
   gsync(s);
   mark(s, P_WAIT_A);
@@ -654,7 +705,7 @@ __device__ __forceinline__ int code_bit(Lane& s, const Model& m,
   if (s.prof) ++s.acc[P_BITS];
   phase_c(s, m, y);
   mark(s, P_C);
-  tail(s, m, y);
+  tail(s, m, step, y);
   i32* p = s.p;
   s.p = s.pn;
   s.pn = p;
@@ -664,15 +715,17 @@ __device__ __forceinline__ int code_bit(Lane& s, const Model& m,
 }
 
 // The lane kernels' common arguments: the model (component table, its
-// placement, u8 and u32 table offsets, HCOMP bytecode, H and M sizes), the
-// group size and lanes per block, the lane region's geometry, the LUT, the
-// lanes' input spans, their state (u8 and u32 arenas with per-lane strides,
-// H, M) and their output spans, lengths and status codes.
+// placement, u8 and u32 table offsets, HCOMP bytecode, H and M sizes, the
+// interpreter's step limit), the group size and lanes per block, the lane
+// region's geometry, the LUT, the lanes' input spans, their state (u8 and
+// u32 arenas with per-lane strides, H, M: unused by FastStep) and their
+// output spans, lengths and status codes.
 #define CM_LANE_PARAMS                                                       \
   const i32 *__restrict__ comps, const i32 *__restrict__ cplan,              \
       const i64 *__restrict__ off8, const i64 *__restrict__ off32, int n,    \
-      const u8 *__restrict__ hcomp, int hlen, int hh, int hm, int G,         \
-      int lpb, int lane_words, const i32 *__restrict__ geo,                  \
+      const u8 *__restrict__ hcomp, int hlen, int hh, int hm,                \
+      u64 max_steps, int G, int lpb, int lane_words,                         \
+      const i32 *__restrict__ geo,                                           \
       const i32 *__restrict__ lut, const u8 *__restrict__ in,                \
       const i64 *__restrict__ in_off, const i64 *__restrict__ in_len,        \
       u8 *a8, i64 s8, u32 *a32, i64 s32, u32 *hmem, u8 *mmem, u32 *rmem,     \
@@ -689,7 +742,8 @@ __device__ __forceinline__ Model load_model(unsigned char* smem,
                                             const i64* off8,
                                             const i64* off32, int n,
                                             const u8* hcomp, int hlen,
-                                            int hh, int hm, const i32* lut) {
+                                            int hh, int hm, u64 max_steps,
+                                            const i32* lut) {
   const int T = blockDim.x;
   const int t = threadIdx.x;
   short* s_sq = reinterpret_cast<short*>(smem);
@@ -758,6 +812,7 @@ __device__ __forceinline__ Model load_model(unsigned char* smem,
   m.hlen = hlen;
   m.hmask = (1u << hh) - 1u;
   m.mmask = (1u << hm) - 1u;
+  m.max_steps = max_steps;
   return m;
 }
 
@@ -836,7 +891,8 @@ typedef void (*LaneKernel)(CM_LANE_PARAMS);
 inline int launch_lanes(LaneKernel kernel, const void* comps,
                         const void* cplan, const void* off8,
                         const void* off32, int n, const void* hcomp, int hlen,
-                        int hh, int hm, int G, int lpb, int blocks,
+                        int hh, int hm, u64 max_steps, int G, int lpb,
+                        int blocks,
                         int lane_words, const void* geo, const void* lut,
                         const void* in,
                         const void* in_off, const void* in_len, void* a8,
@@ -847,7 +903,8 @@ inline int launch_lanes(LaneKernel kernel, const void* comps,
   const long long smem =
       header_bytes(n, hlen) + (long long)lpb * lane_words * 4;
   if (n < 1 || n > MAXC || G < 1 || G > 32 || (G & (G - 1)) || lpb < 1
-      || lpb * G > 1024 || lane_words < 1 || lane_words % 4 || L < 1
+      || lpb * G > MAX_BLOCK_THREADS || lane_words < 1 || lane_words % 4
+      || L < 1
       || (long long)blocks * lpb < L || (long long)(blocks - 1) * lpb >= L
       || smem > SMEM_LIMIT || s8 % 16)
     return (int)cudaErrorInvalidValue;
@@ -856,7 +913,8 @@ inline int launch_lanes(LaneKernel kernel, const void* comps,
   if (e != cudaSuccess) return (int)e;
   kernel<<<blocks, lpb * G, size_t(smem), (cudaStream_t)stream>>>(
       (const i32*)comps, (const i32*)cplan, (const i64*)off8,
-      (const i64*)off32, n, (const u8*)hcomp, hlen, hh, hm, G, lpb,
+      (const i64*)off32, n, (const u8*)hcomp, hlen, hh, hm, max_steps, G,
+      lpb,
       lane_words, (const i32*)geo, (const i32*)lut, (const u8*)in,
       (const i64*)in_off, (const i64*)in_len, (u8*)a8, s8, (u32*)a32, s32,
       (u32*)hmem, (u8*)mmem, (u32*)rmem, (u8*)out, (const i64*)out_off,

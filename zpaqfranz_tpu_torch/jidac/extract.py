@@ -27,6 +27,10 @@ from .index import Block, Jidac, fragment_to_block
 
 __all__ = ["ExtractError", "extract", "select_files", "verify_archive"]
 
+#: decoded bytes of whole blocks that ``verify_archive`` hashes in one
+#: launch of the SHA-1 lane kernel
+VERIFY_BATCH_BYTES = 1 << 30
+
 
 def _decode_block(src, blk: Block) -> bytes:
     """Decode one d block to its concatenated fragment bytes.
@@ -182,8 +186,8 @@ def verify_archive(data, jd: Jidac, threads: int = 0,
 
     ``use_device`` hashes every fragment in the SHA-1 lane kernel on
     ``device`` (None = the CUDA card; "cpu" = the plain PyTorch version)
-    after a host decode; False = native decode+hash per block on host
-    threads."""
+    after a host decode, one launch per ``VERIFY_BATCH_BYTES`` of whole
+    blocks; False = native decode+hash per block on host threads."""
     data = as_source(data)
     threads = threads or min(32, (os.cpu_count() or 4))
     if use_device:
@@ -216,12 +220,33 @@ def verify_archive(data, jd: Jidac, threads: int = 0,
     return len(jd.block), nfrag
 
 
+def _batches(jd: Jidac) -> List[List[Block]]:
+    """The archive's blocks in order, cut into runs of whole blocks whose
+    fragments hold at most ``VERIFY_BATCH_BYTES`` (a larger block alone)."""
+    out: List[List[Block]] = []
+    size = 0
+    for blk in jd.block:
+        n = sum(jd.ht[j].usize for j in range(blk.start,
+                                               blk.start + blk.frags))
+        if not out or size + n > VERIFY_BATCH_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append(blk)
+        size += n
+    return out
+
+
 def _verify_archive_device(data, jd: Jidac, threads: int,
                            device) -> Tuple[int, int]:
-    """Decode blocks on host threads, then hash every fragment that has a
-    stored SHA-1 in one launch of the SHA-1 lane kernel on ``device``:
-    the decoded blocks go over as one flat buffer (staged in pinned host
-    memory), each fragment a lane (offset, length) into it."""
+    """Decode blocks on host threads and hash every fragment that has a
+    stored SHA-1 in the SHA-1 lane kernel on ``device``, one launch per
+    batch of whole blocks of at most ``VERIFY_BATCH_BYTES``: a batch's
+    decoded blocks go over as one flat buffer (staged in pinned host
+    memory), each fragment a lane (offset, length) into it. The next
+    batch decodes while the current one hashes, so host memory holds about
+    two batches. Blocks and fragments are checked in archive order: the
+    first block that fails to decode or fragment that fails its checksum
+    raises."""
     import torch
 
     from ..ops import sha1
@@ -233,29 +258,43 @@ def _verify_archive_device(data, jd: Jidac, threads: int,
             raise ExtractError(f"block at {blk.offset}: fragments incomplete")
         return out
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as ex:
-        outs = list(ex.map(work, jd.block))
+    def check(blocks: List[Block], outs: List[bytes]) -> int:
+        frag_ids: List[int] = []
+        offs: List[int] = []
+        lens: List[int] = []
+        base = 0
+        for blk, out in zip(blocks, outs):
+            q = base
+            for j in range(blk.start, blk.start + blk.frags):
+                usize = jd.ht[j].usize
+                if jd.ht[j].sha1 != b"\x00" * 20:
+                    frag_ids.append(j)
+                    offs.append(q)
+                    lens.append(usize)
+                q += usize
+            base += len(out)
+        flat = sha1.stage_bytes(outs, device)
+        states = sha1.sha1_lanes(
+            flat, torch.tensor(offs, dtype=torch.int64).to(device),
+            torch.tensor(lens, dtype=torch.int64).to(device))
+        for j, dig in zip(frag_ids, sha1.to_digests(states)):
+            if dig != jd.ht[j].sha1:
+                raise ExtractError(f"fragment {j}: checksum failed")
+        return len(frag_ids)
 
-    frag_ids: List[int] = []
-    offs: List[int] = []
-    lens: List[int] = []
-    base = 0
-    for blk, out in zip(jd.block, outs):
-        q = base
-        for j in range(blk.start, blk.start + blk.frags):
-            usize = jd.ht[j].usize
-            if jd.ht[j].sha1 != b"\x00" * 20:
-                frag_ids.append(j)
-                offs.append(q)
-                lens.append(usize)
-            q += usize
-        base += len(out)
-    flat = sha1.stage_bytes(outs, device)
-    del outs
-    states = sha1.sha1_lanes(
-        flat, torch.tensor(offs, dtype=torch.int64).to(device),
-        torch.tensor(lens, dtype=torch.int64).to(device))
-    for j, dig in zip(frag_ids, sha1.to_digests(states)):
-        if dig != jd.ht[j].sha1:
-            raise ExtractError(f"fragment {j}: checksum failed")
-    return len(jd.block), len(frag_ids)
+    batches = _batches(jd)
+    nfrag = 0
+    with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as ex:
+        pending = [ex.submit(work, b) for b in batches[0]] if batches else []
+        for k, blocks in enumerate(batches):
+            outs = [f.result() for f in pending]
+            pending = ([ex.submit(work, b) for b in batches[k + 1]]
+                       if k + 1 < len(batches) else [])
+            try:
+                nfrag += check(blocks, outs)
+            except BaseException:
+                for f in pending:
+                    f.cancel()
+                raise
+            del outs
+    return len(jd.block), nfrag

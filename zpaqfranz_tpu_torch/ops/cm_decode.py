@@ -4,10 +4,12 @@ Replaces the TPU device program ``zpaqfranz_tpu/ops/codec_arena.py``
 (``ArenaDecoder`` over ``ArenaCoder.byte_step``) and its HCOMP step
 (``ops/hcomp_fast.py`` / ``ops/vm_batched.py``). The kernel is
 ``csrc/cm_decode.cu``: one lane (one d block's coded segment) per group of
-G threads, the whole segment in one launch, HCOMP through an in-kernel
-ZPAQL interpreter. The model it runs (arena layout, predictor phases,
-update, HCOMP, the shared-memory ``Placement``) is shared with the
-encoder: ``csrc/cm_model.cuh`` and ``ops/cm_model.py``.
+G threads, the whole segment in one launch, HCOMP as the model's program
+specialised into straight-line code (``ops/hcomp_fast.py``), or through an
+in-kernel ZPAQL interpreter for a program outside that subset. The model
+it runs (arena layout, predictor phases, update, HCOMP, the shared-memory
+``Placement``) is shared with the encoder: ``csrc/cm_model.cuh`` and
+``ops/cm_model.py``.
 
 The plain version is ``cm_model.PlainModel`` with libzpaq's range decoder,
 looping over bytes and bits in Python.
@@ -16,14 +18,14 @@ looping over bytes and bits in Python.
 tensors it launches the kernel or raises. A lane that fails (corrupt
 stream, input too short, output past its capacity, a ZPAQL fault) raises
 ``CMDecodeError``; nothing is truncated silently. The kernel also fails a
-lane whose HCOMP run exceeds 2^24 instructions for one byte, so a runaway
-program cannot hold the card; the plain version has no such limit (a
-difference recorded in ROADMAP.md, Queue 3).
+lane whose interpreted HCOMP run exceeds ``max_hcomp_steps`` instructions
+for one byte (2^24 by default), so a runaway program cannot hold the card;
+the plain version has no such limit.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -37,10 +39,12 @@ from .sha1 import pack_messages
 
 __all__ = ["Layout", "Launch", "lut", "cm_decode", "cm_decode_plain",
            "CMDecodeError", "initial_lane_state", "lane_bytes",
-           "pack_streams", "lanes_to_bytes", "launches"]
+           "pack_streams", "lanes_to_bytes", "launches", "hcomp_launches"]
 
 #: kernel launches made by ``cm_decode`` in this process
 launches = 0
+#: ... of them by HCOMP step (``cm_model.HCOMP_STEPS``)
+hcomp_launches = {"fast": 0, "interp": 0}
 
 _REASON = {ST_OVERRUN: "decoded past its output capacity",
            ST_CORRUPT: "coded stream is corrupt",
@@ -53,18 +57,21 @@ class CMDecodeError(ExtractError):
 
 
 def cm_decode(model: Model, coded: torch.Tensor, in_off: torch.Tensor,
-              in_len: torch.Tensor, out_cap: torch.Tensor
+              in_len: torch.Tensor, out_cap: torch.Tensor,
+              max_hcomp_steps: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode every lane ``coded[in_off[i]:in_off[i] + in_len[i]]`` (a coded
     segment from its first byte) up to its end-of-segment bit.
 
     Returns ``(out, out_off, out_len)``: lane i's decoded bytes are
     ``out[out_off[i]:out_off[i] + out_len[i]]``, with at most
-    ``out_cap[i]`` bytes per lane."""
+    ``out_cap[i]`` bytes per lane. ``max_hcomp_steps``: the kernel's limit
+    on an interpreted HCOMP run (``cm_model.MAX_HCOMP_STEPS``)."""
     check_lanes(model, coded, in_off, in_len, out_cap)
     if coded.device.type == "cpu":
         return cm_decode_plain(model, coded, in_off, in_len, out_cap)
-    return Launch(model, coded, in_off, in_len, out_cap).run().result()
+    return Launch(model, coded, in_off, in_len, out_cap,
+                  max_hcomp_steps=max_hcomp_steps).run().result()
 
 
 class Launch(LaneLaunch):
@@ -78,6 +85,7 @@ class Launch(LaneLaunch):
     def counted(self) -> None:
         global launches
         launches += 1
+        hcomp_launches[self.hcomp] += 1
 
 
 # ---------------------------------------------------------------------------

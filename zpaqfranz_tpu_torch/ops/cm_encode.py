@@ -18,11 +18,13 @@ the end marker that ``parallel/engine.assemble_block`` appends.
 range coder) only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises. A lane whose coded bytes would pass its capacity, or
 whose HCOMP program faults, raises ``CMEncodeError``; nothing is truncated.
+HCOMP runs as in the decoder: specialised when ``ops/hcomp_fast.py``
+accepts the program, else interpreted with the ``max_hcomp_steps`` limit.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,10 +35,12 @@ from .cm_model import (_M32, ST_CORRUPT, ST_OK, ST_OVERRUN, ST_ZPAQL,
 from .sha1 import pack_messages
 
 __all__ = ["Launch", "cm_encode", "cm_encode_plain", "CMEncodeError",
-           "lane_cap", "pack_payloads", "launches"]
+           "lane_cap", "pack_payloads", "launches", "hcomp_launches"]
 
 #: kernel launches made by ``cm_encode`` in this process
 launches = 0
+#: ... of them by HCOMP step (``cm_model.HCOMP_STEPS``)
+hcomp_launches = {"fast": 0, "interp": 0}
 
 _REASON = {ST_OVERRUN: "coded past its output capacity",
            ST_CORRUPT: "model has an unknown component",
@@ -54,18 +58,21 @@ def lane_cap(n: int) -> int:
 
 
 def cm_encode(model: Model, data: torch.Tensor, in_off: torch.Tensor,
-              in_len: torch.Tensor, out_cap: torch.Tensor
+              in_len: torch.Tensor, out_cap: torch.Tensor,
+              max_hcomp_steps: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Code every lane ``data[in_off[i]:in_off[i] + in_len[i]]`` (a payload
     with its selector prefix) as one ZPAQ segment body.
 
     Returns ``(out, out_off, out_len)``: lane i's coded bytes are
     ``out[out_off[i]:out_off[i] + out_len[i]]``, with at most
-    ``out_cap[i]`` bytes per lane."""
+    ``out_cap[i]`` bytes per lane. ``max_hcomp_steps``: the kernel's limit
+    on an interpreted HCOMP run (``cm_model.MAX_HCOMP_STEPS``)."""
     check_lanes(model, data, in_off, in_len, out_cap)
     if data.device.type == "cpu":
         return cm_encode_plain(model, data, in_off, in_len, out_cap)
-    return Launch(model, data, in_off, in_len, out_cap).run().result()
+    return Launch(model, data, in_off, in_len, out_cap,
+                  max_hcomp_steps=max_hcomp_steps).run().result()
 
 
 class Launch(LaneLaunch):
@@ -79,6 +86,7 @@ class Launch(LaneLaunch):
     def counted(self) -> None:
         global launches
         launches += 1
+        hcomp_launches[self.hcomp] += 1
 
 
 # ---------------------------------------------------------------------------

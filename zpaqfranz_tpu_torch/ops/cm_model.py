@@ -8,16 +8,22 @@ launch of either lane kernel (``LaneLaunch``: both kernels take the same
 arguments) and the plain PyTorch predictor (``PlainModel``) that the plain
 decoder and encoder extend with their range coders.
 
+HCOMP runs in one of two steps, as in the reference's ``ArenaCoder``: a
+program that ``ops/hcomp_fast.try_compile`` accepts runs specialised
+(``"fast"``: generated straight-line code in the kernels, the executor over
+tensors in the plain predictor; no H and no M), any other through a ZPAQL
+interpreter (``"interp"``: in the kernels with a per-launch step limit,
+``max_hcomp_steps``, 2^24 instructions for one byte by default; in the
+plain predictor the scalar ``zpaql.vm.VM`` per lane, without a limit).
+
 The plain predictor batches lanes in ``int64`` tensors (CPU ``uint32`` has
-no arithmetic), keeps the arenas as ``uint8`` / ``int32`` tensors widened
-after each gather, and runs HCOMP per lane through the scalar
-``zpaql.vm.VM``. It has no HCOMP step limit; the kernels fail a lane whose
-HCOMP run exceeds 2^24 instructions for one byte (ROADMAP.md, Queue 3).
+no arithmetic) and keeps the arenas as ``uint8`` / ``int32`` tensors widened
+after each gather.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,11 +32,17 @@ from ..models import tables as T
 from ..zpaql.header import Model
 from ..zpaql.vm import VM, ZPAQLRuntimeError
 from . import build
+from .hcomp_fast import try_compile
 
 ST_OK, ST_OVERRUN, ST_CORRUPT, ST_EOF, ST_ZPAQL = range(5)
 
 _M32 = 0xFFFFFFFF
 _NPAR = 6
+#: instructions an interpreted HCOMP run may execute for one byte before
+#: the kernels take it as a runaway program and fail the lane
+MAX_HCOMP_STEPS = 1 << 24
+#: the HCOMP steps of the lane kernels
+HCOMP_STEPS = ("fast", "interp")
 
 # combined LUT: squash(4096) | stretch(32768) | sns(1024), as codec_arena
 SQ_OFF = 0
@@ -140,13 +152,32 @@ def initial_lane_state(model: Model, L: int, device
     return a8, a32, hmem, mmem
 
 
-def lane_bytes(model: Model) -> int:
-    """Device bytes of one lane's state in a kernel launch: the u8 arena at
-    the kernel's aligned offsets, the u32 arena, H unless it lives in
-    shared memory, M and ZPAQL R."""
-    plan = Placement(model)
+def hcomp_step(model: Model, hcomp: Optional[str] = None) -> str:
+    """The HCOMP step a launch of ``model`` runs: ``"fast"`` when
+    ``try_compile`` accepts the program, else ``"interp"``; ``hcomp``
+    forces one ("fast" raises for a program outside the subset)."""
+    fast = try_compile(model) is not None
+    if hcomp is None:
+        return "fast" if fast else "interp"
+    if hcomp not in HCOMP_STEPS:
+        raise ValueError(f"hcomp must be one of {HCOMP_STEPS}, not {hcomp!r}")
+    if hcomp == "fast" and not fast:
+        raise ValueError("the model's HCOMP program is outside the "
+                         "specialisable subset")
+    return hcomp
+
+
+def lane_bytes(model: Model, hcomp: str = "interp") -> int:
+    """Device bytes of one lane's state in a kernel launch with HCOMP step
+    ``hcomp``: the u8 arena at the kernel's aligned offsets, the u32 arena,
+    and for the interpreter H unless it lives in shared memory, M and ZPAQL
+    R (the specialised step allocates none of them)."""
+    plan = Placement(model, hcomp)
+    base = plan.s8 + 4 * Layout(model).s32
+    if hcomp == "fast":
+        return base
     h = 0 if plan.geo["ht"] >= 0 else 4 << model.hh
-    return plan.s8 + 4 * Layout(model).s32 + h + (1 << model.hm) + 1024
+    return base + h + (1 << model.hm) + 1024
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +191,10 @@ SMEM_LIMIT = 232448
 LANE_BUDGET = 48 << 10
 #: threads of a lane's group: at most one warp
 MAX_GROUP = 32
+#: threads of a block: the kernels are compiled for at most this many
+#: (csrc/cm_model.cuh MAX_BLOCK_THREADS, ``__launch_bounds__``), which
+#: leaves each thread up to 128 registers (they use about 120)
+MAX_BLOCK_THREADS = 512
 #: per-component placement columns (csrc/cm_model.cuh CP_*)
 _NPLAN = 3
 #: the lane region's arrays, in csrc/cm_model.cuh's G_* order
@@ -218,14 +253,20 @@ class Placement:
       stays in device memory: the u8 tables always (at ``off8``, 64-byte
       aligned, stride ``s8``), the u32 tables at ``Layout``'s offsets, H in
       its own tensor, and ZPAQL R (which the standard programs never use).
+      ``hcomp`` is the launch's HCOMP step: the specialised one (``"fast"``)
+      has no H to place.
     - ``lanes_per_block``: lanes whose regions fit one block beside the
-      header (``header``), at most 1024 threads; ``smem``: the block's
+      header (``header``), at most ``MAX_BLOCK_THREADS`` threads;
+      ``smem``: the block's
       shared bytes."""
 
-    def __init__(self, model: Model):
+    def __init__(self, model: Model, hcomp: str = "interp"):
         n = model.n
         if not 1 <= n <= 256:
             raise ValueError(f"a CM kernel takes 1..256 components, not {n}")
+        if hcomp not in HCOMP_STEPS:
+            raise ValueError(f"hcomp must be one of {HCOMP_STEPS}")
+        self.hcomp = hcomp
         comps = [tuple(c) for c in model.comps]
         self.G = 1
         while self.G < min(n, MAX_GROUP):
@@ -249,7 +290,7 @@ class Placement:
                 self.rows[i] = take(("rows", i),
                                     cp[3] if cp[0] == T.MIX else 32)
         self.geo["misc"] = take("misc", 4)
-        tables = sorted([(1 << model.hh, -1)] + [
+        tables = sorted([(1 << model.hh, -1)] * (hcomp == "interp") + [
             (table_words(cp), i) for i, cp in enumerate(comps)
             if table_words(cp)])
         self.shared: Dict[int, int] = {}
@@ -260,7 +301,8 @@ class Placement:
         self.lane_words = words
         self.header = header_bytes(n, len(hcomp_bytes(model)))
         self.lanes_per_block = min((SMEM_LIMIT - self.header)
-                                   // (4 * words), 1024 // self.G)
+                                   // (4 * words),
+                                   MAX_BLOCK_THREADS // self.G)
         if self.lanes_per_block < 1:
             raise ValueError(f"model with {n} components does not fit a "
                              f"block's shared memory")
@@ -293,11 +335,12 @@ class Placement:
 
 
 def kernel_state(model: Model, plan: Placement, L: int, device
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                            torch.Tensor]:
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Fresh state for ``L`` lanes of a kernel launch: the state of
-    ``initial_lane_state`` with the u8 arena at the plan's aligned offsets
-    and H only where it lives in device memory (else one unused word)."""
+    ``initial_lane_state`` with the u8 arena at the plan's aligned offsets,
+    H only where it lives in device memory (else one unused word) and M;
+    for the specialised HCOMP step neither H nor M (None)."""
     a8_row = np.zeros(plan.s8, np.uint8)
     for i, cp in enumerate(model.comps):
         if cp[0] == T.MATCH:
@@ -306,6 +349,8 @@ def kernel_state(model: Model, plan: Placement, L: int, device
     a8 = torch.from_numpy(a8_row).to(device).expand(L, -1).contiguous()
     a32 = torch.from_numpy(a32_row.view(np.int32)).to(device).expand(
         L, -1).contiguous()
+    if plan.hcomp == "fast":
+        return a8, a32, None, None
     hmem = torch.zeros((L, 1 << model.hh) if plan.geo["ht"] < 0 else (1,),
                        dtype=torch.int32, device=device)
     mmem = torch.zeros((L, 1 << model.hm), dtype=torch.uint8, device=device)
@@ -387,6 +432,15 @@ class LaneLaunch:
     the state set-up. ``profile=True`` has thread 0 of every lane count its
     clock cycles per phase (``PROFILE``), read with ``profile()``.
 
+    ``hcomp`` is the HCOMP step (``hcomp_step``): None runs the program
+    specialised when ``try_compile`` accepts it, else the interpreter, as
+    the reference's ``ArenaCoder`` does; ``"interp"`` forces the
+    interpreter, so that the two can be held against each other on the
+    card. ``self.hcomp`` records the step. ``max_hcomp_steps`` bounds the
+    instructions an interpreted run may execute for one byte (default
+    ``MAX_HCOMP_STEPS``): past it the lane fails as a runaway program. A
+    specialised program has no loops and no limit.
+
     Subclasses name the kernel (its library under ``csrc/`` and the prefix
     of its ``_launch`` symbol), the error, the reason of each status, and
     count their launches in ``counted()``."""
@@ -397,28 +451,39 @@ class LaneLaunch:
 
     def __init__(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
                  in_len: torch.Tensor, out_cap: torch.Tensor,
-                 profile: bool = False):
+                 profile: bool = False, hcomp: Optional[str] = None,
+                 max_hcomp_steps: Optional[int] = None):
         check_lanes(model, src, in_off, in_len, out_cap)
         if src.device.type != "cuda":
             raise ValueError(f"no {self.kernel} kernel for device "
                              f"{src.device}")
-        self.prepare(model, src, in_off, in_len, out_cap, profile)
+        self.prepare(model, src, in_off, in_len, out_cap, profile, hcomp,
+                     max_hcomp_steps)
 
     def prepare(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
                 in_len: torch.Tensor, out_cap: torch.Tensor,
-                profile: bool = False) -> None:
+                profile: bool = False, hcomp: Optional[str] = None,
+                max_hcomp_steps: Optional[int] = None) -> None:
         """Build the launch's arguments on the inputs' device."""
         dev = src.device
         L = in_off.shape[0]
         if L == 0:
             raise ValueError("no lanes to code")
+        steps = MAX_HCOMP_STEPS if max_hcomp_steps is None \
+            else int(max_hcomp_steps)
+        if not 1 <= steps < 1 << 63:
+            raise ValueError("max_hcomp_steps must be at least 1")
         if (int(in_off.min()) < 0 or int(in_len.min()) < 0
                 or int((in_off + in_len).max()) > src.numel()
                 or int(out_cap.min()) < 0):
             raise ValueError("a lane reaches outside its input, or has a "
                              "negative capacity")
         lay = Layout(model)
-        self.plan = plan = Placement(model)
+        self.hcomp = hcomp_step(model, hcomp)
+        self.plan = plan = Placement(model, self.hcomp)
+        #: the build unit: the kernel, or the kernel with the program
+        self.unit = self.kernel if self.hcomp == "interp" else (
+            self.kernel, try_compile(model).cuda_source())
         comps = np.zeros((model.n, _NPAR), np.int32)
         for i, cp in enumerate(lay.comps):
             comps[i, :len(cp)] = cp
@@ -432,7 +497,9 @@ class LaneLaunch:
                         t(np.array(plan.off8, np.int64)), t(off32), t(hcomp),
                         t(plan.geometry()), lut(dev))
         self._state = kernel_state(model, plan, L, dev)
-        self._rmem = torch.zeros((L, 256), dtype=torch.int32, device=dev)
+        # ZPAQL R, H and M: the interpreter's alone (null pointers else)
+        self._rmem = (torch.zeros((L, 256), dtype=torch.int32, device=dev)
+                      if self.hcomp == "interp" else None)
         self.out_off = out_offsets(out_cap)
         self.out = torch.empty(int(out_cap.sum()) or 1, dtype=torch.uint8,
                                device=dev)
@@ -445,10 +512,11 @@ class LaneLaunch:
         a8, a32, hmem, mmem = self._state
         self._args = (
             t_comps, t_cplan, t_off8, t_off32, model.n, t_hcomp, len(hcomp),
-            model.hh, model.hm, plan.G, plan.lanes_per_block, plan.blocks(L),
-            plan.lane_words, t_geo, t_lut, src, in_off, in_len, a8, plan.s8,
-            a32, lay.s32, hmem, mmem, self._rmem, self.out, self.out_off,
-            out_cap, self.out_len, self.status,
+            model.hh, model.hm, steps, plan.G, plan.lanes_per_block,
+            plan.blocks(L), plan.lane_words, t_geo, t_lut, src, in_off,
+            in_len, a8, plan.s8, a32, lay.s32,
+            *[0 if t is None else t for t in (hmem, mmem, self._rmem)],
+            self.out, self.out_off, out_cap, self.out_len, self.status,
             0 if self.prof is None else self.prof, L)
         self._ran = False
 
@@ -461,7 +529,7 @@ class LaneLaunch:
         if self._ran:
             raise RuntimeError(f"a prepared {self.kernel} launch runs once")
         self._ran = True
-        build.call(self.kernel, f"{self.kernel}_launch", self.dev, *self._args)
+        build.call(self.unit, f"{self.kernel}_launch", self.dev, *self._args)
         self.counted()
         return self
 
@@ -495,8 +563,14 @@ class PlainModel:
         self.lut = lut(dev).long()
         self.ar = torch.arange(L, device=dev)
         self.a8, self.a32, _, _ = initial_lane_state(model, L, dev)
-        self.vms = [VM.for_hcomp(model) for _ in range(L)]
         z = torch.zeros(L, dtype=torch.int64, device=dev)
+        # HCOMP: the specialised program over all lanes, else a VM per lane
+        self.fh = try_compile(model)
+        if self.fh is None:
+            self.vms = [VM.for_hcomp(model) for _ in range(L)]
+        else:
+            self.win = self.fh.init_state(L, dev)["win"]
+            self.cc = z.clone()
         self.status = z.clone()
         self.active = torch.ones(L, dtype=torch.bool, device=dev)
         self.c8 = z + 1
@@ -716,6 +790,10 @@ class PlainModel:
         self.ma[i] = a
 
     def run_hcomp(self) -> None:
+        if self.fh is not None:
+            self.win, self.cc, self.h = self.fh.run_columns(
+                self.win, self.cc, self.h, self.c8 - 256)
+            return
         byte = (self.c8 - 256).tolist()
         act = self.active.tolist()
         bad = []

@@ -25,7 +25,7 @@ from ..errors import ExtractError
 from ..codec.container import (TAG, ByteReader, find_block, read_comment,
                                read_filename)
 from ..ops import cm_decode as cmd, cm_encode as cme
-from ..ops.cm_model import lane_bytes
+from ..ops.cm_model import hcomp_step, lane_bytes
 from ..zpaql.header import Model
 
 #: pre-postprocessing stream bound over a block's usize: BWT adds 5 bytes
@@ -38,12 +38,13 @@ _MEM_SHARE = 0.8
 
 def lanes_per_launch(model: Model, lane_io: int, device: torch.device
                      ) -> int:
-    """Lanes that fit one launch: per-lane model state plus ``lane_io``
-    bytes of coded input and output per lane, against the card's free
-    memory. On the CPU the plain versions take every lane in one call."""
+    """Lanes that fit one launch: per-lane model state (what a launch with
+    the model's HCOMP step allocates) plus ``lane_io`` bytes of coded input
+    and output per lane, against the card's free memory. On the CPU the
+    plain versions take every lane in one call."""
     if device.type != "cuda":
         return sys.maxsize
-    per_lane = lane_bytes(model) + lane_io
+    per_lane = lane_bytes(model, hcomp_step(model)) + lane_io
     free, _ = torch.cuda.mem_get_info(device)
     fit = int(free * _MEM_SHARE) // per_lane
     if fit < 1:
@@ -53,30 +54,36 @@ def lanes_per_launch(model: Model, lane_io: int, device: torch.device
 
 
 def decode_streams(model: Model, streams: Sequence[bytes],
-                   caps: Sequence[int], device: torch.device) -> List[bytes]:
+                   caps: Sequence[int], device: torch.device,
+                   max_hcomp_steps: Optional[int] = None) -> List[bytes]:
     """Decode coded segment payloads (post-header bytes, the segment's tail
     included) as lanes on ``device``. Returns each lane's pre-postprocessing
     stream (selector prefix + body); lane i may hold at most ``caps[i]``
-    bytes, and a lane that would exceed it raises."""
+    bytes, and a lane that would exceed it raises. ``max_hcomp_steps``: the
+    kernel's limit on an interpreted HCOMP run."""
     out: List[bytes] = []
     lane_io = math.ceil((sum(map(len, streams)) + sum(caps)) / len(streams))
     step = lanes_per_launch(model, lane_io, device)
     for s in range(0, len(streams), step):
         packed = cmd.pack_streams(streams[s:s + step], caps[s:s + step],
                                   device)
-        out += cmd.lanes_to_bytes(*cmd.cm_decode(model, *packed))
+        out += cmd.lanes_to_bytes(*cmd.cm_decode(
+            model, *packed, max_hcomp_steps=max_hcomp_steps))
     return out
 
 
 def encode_streams(model: Model, payloads: Sequence[bytes],
-                   device: torch.device) -> List[bytes]:
+                   device: torch.device,
+                   max_hcomp_steps: Optional[int] = None) -> List[bytes]:
     """Code payloads (selector prefix included) as lanes of one launch on
     ``device``; the caller sizes the batch with ``lanes_per_launch``.
     Returns each lane's coded segment body; lane i may take at most
     ``cm_encode.lane_cap(len(payloads[i]))`` bytes, and a lane that would
-    exceed it raises."""
+    exceed it raises. ``max_hcomp_steps``: the kernel's limit on an
+    interpreted HCOMP run."""
     packed = cme.pack_payloads(payloads, device)
-    return cmd.lanes_to_bytes(*cme.cm_encode(model, *packed))
+    return cmd.lanes_to_bytes(*cme.cm_encode(
+        model, *packed, max_hcomp_steps=max_hcomp_steps))
 
 
 def parse_block_payload(data: bytes, offset: int
