@@ -34,12 +34,23 @@ byte-identical to the host engine's ``add`` of the same tree and date;
 ``extract`` restores it through the CM decode kernel; ``verify_archive``
 checks every fragment through the SHA-1 kernel; ``sum -sha1`` and ``sum
 -sha256`` hash the corpus through the SHA-1 and SHA-256 kernels; and a
-flipped byte inside a d block must raise ``ExtractError``. The
-measurement path: the two microbenchmark entry points' ``main()``, and the
+flipped byte inside a d block must raise ``ExtractError``. Several devices
+and hosts: 16 -m4 lanes of 16 KiB split over the card named 1, 2 and 4
+times (``parallel/dist.py``), equal to one launch and to the host engine,
+decoded back, with the aggregate MB/s; the multi-host add
+(``parallel/multihost.py``) at method 3.0 over 4 MiB, 1-3 ranks over TCP
+and 1-2 over torch.distributed, each rank a process coding on the card,
+every world's archive equal to one ``add`` on the card and on the host
+engine, each rank's CM encode launches read from its printed count. The
+CLI: ``backup`` at -m4 twice (a second part), ``testbackup``, ``p`` and
+``c`` on the parts, equal to the host engine's lines; ``autotest -all``.
+The measurement path: the two microbenchmark entry points' ``main()``, and the
 device bench's whole lane ladder (SHA-1 lanes, then CM encode and decode
 at -m3 x 256 and x 1024 lanes and "4.0" x 8 and x 32, every lane equal to
 the host engine's coded stream and decoded back to its payload). Every
-kernel must have launched on its path. Scratch files go to
+kernel must have launched on its paths: each path runs with the launch
+counts set to 0 just before it and read just after, and the JSON line
+sums them. Scratch files go to
 ``build/smoke/`` and are removed at the end.
 
 Output: per-phase lines, then one JSON line of kernel measurements (in the
@@ -102,6 +113,22 @@ CM_OPS_PER_COMPONENT_BIT = 20
 M4_BYTES = 2 << 20
 M3_BYTES = 2 << 20
 M5_BYTES = 2 << 20
+# lanes split over several devices (parallel/dist.py): 16 lanes of 16 KiB
+# at -m4 (16 MiB blocks), over the one card named 1, 2 and 4 times
+SHARD_LANES = 16
+SHARD_LANE_BYTES = 16 << 10
+SHARD_KS = (1, 2, 4)
+# the multi-host add (parallel/multihost.py), one rank a process, all on
+# the one card: method 3.0 (-m3's model and BWT at 1 MiB blocks; one -m4
+# block of 16 MiB would be one lane of ~540 s) over 4 MiB of distinct
+# text, which makes 4 d blocks; over TCP at 1-3 ranks, over
+# torch.distributed (gloo) at 1-2
+MH_METHOD = "3.0"
+MH_BYTES = 4 << 20
+MH_WORLDS = (1, 2, 3)
+MH_TORCH_WORLDS = (1, 2)
+# backup, testbackup, p and c through the CLI: -m4 over a 256 KiB tree
+BACKUP_BYTES = 256 << 10
 # hash kernels: 4096 lanes of log-uniform lengths up to 256 KiB (the main
 # path hashes files and fragments of 1-175 KiB), held against the plain
 # version and hashlib, and timed
@@ -1266,6 +1293,205 @@ def main_path(torch, np, dev, level: str, nbytes: int, seed: int,
             "lane_KBps": cm_bytes / max(1, modeled) / t_x / 1e3}
 
 
+# ---------------------------------------------------------------------------
+# the paths of several devices, several hosts and the CLI's commands
+
+
+def run_cli(argv) -> tuple:
+    """``cli.main(argv)`` run in ``WORK``: its exit code and stdout."""
+    from zpaqfranz_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = in_dir(WORK, lambda: cli_main(argv))
+    return rc, out.getvalue()
+
+
+def sharded_lanes(torch, np, dev, seed: int) -> int:
+    """-m4 lanes split over the card named k times (``parallel/dist.py``):
+    the coded bytes equal the unsharded launch's and the host engine's, the
+    decode gives the payloads back, and each non-empty shard launches each
+    kernel at least once. Prints the aggregate MB/s at each k."""
+    from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+    from zpaqfranz_tpu_torch.parallel import dist, engine
+
+    model = make_model("4")[0]
+    sel = selector(model)
+    rng = np.random.default_rng(seed)
+    pays = [sel + p for p in lane_payloads(
+        np, rng, [SHARD_LANE_BYTES] * SHARD_LANES)]
+    single = engine.encode_streams(model, pays, dev)
+    check(single == [coded_stream(model, p[len(sel):])[:-6] for p in pays],
+          "-m4 lanes: the card's encode differs from the host engine's")
+    nbytes = sum(map(len, pays))
+    for k in SHARD_KS:
+        mesh = [dev] * k
+        e0, d0 = cme.launches, cmd.launches
+        t0 = time.perf_counter()
+        coded = dist.encode_streams_sharded(model, pays, mesh)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        check(coded == single, f"-m4 lanes over {k} shards: the coded "
+              f"bytes differ from the unsharded launch's")
+        t0 = time.perf_counter()
+        back = dist.decode_streams_sharded(model, coded,
+                                           max(map(len, pays)) + 8, mesh)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        check(back == pays, f"-m4 lanes over {k} shards: the decode "
+              f"differs from the payloads")
+        shards = min(k, SHARD_LANES)
+        enc, dec = cme.launches - e0, cmd.launches - d0
+        check(enc >= shards and dec >= shards,
+              f"-m4 lanes over {k} shards: {enc} encode and {dec} decode "
+              f"launches")
+        log(f"sharded lanes, -m4 x {SHARD_LANES} lanes of "
+            f"{SHARD_LANE_BYTES} bytes over [{dev}] x {k}: encode "
+            f"{t_enc:.2f} s ({nbytes / t_enc / 1e6:.4f} MB/s aggregate, "
+            f"{enc} launches), decode {t_dec:.2f} s "
+            f"({nbytes / t_dec / 1e6:.4f} MB/s, {dec} launches); equal to "
+            f"the unsharded launch and the host engine, decoded back")
+    return 0
+
+
+def text_corpus(np, root: pathlib.Path, nbytes: int, seed: int) -> None:
+    """Seeded text files of 512 KiB, no two alike (nothing dedups)."""
+    rng = np.random.default_rng(seed)
+    vocab = [bytes(rng.integers(97, 123, int(k), dtype=np.uint8))
+             for k in rng.integers(2, 10, 5000)]
+    root.mkdir(parents=True)
+    for k in range(nbytes // (512 << 10)):
+        idx = rng.zipf(1.2, 120000) % len(vocab)
+        body = b" ".join(vocab[i] for i in idx)
+        check(len(body) >= 512 << 10, "text corpus: a file came out short")
+        (root / f"t{k:02d}.txt").write_bytes(body[:512 << 10])
+
+
+def multihost_add(torch, np, dev, seed: int) -> int:
+    """The multi-host add (``parallel/multihost.py``) on the card:
+    ``scaling_report`` over 1-3 ranks on TCP and 1-2 on torch.distributed,
+    each rank a process coding its d blocks on the card (``--device``).
+    The archive of every world equals the single-process ``add``'s on the
+    card and on the host engine; every rank that owns a block launched the
+    CM encoder (the workers' printed counts). Returns those launches."""
+    from zpaqfranz_tpu_torch.jidac.add import add
+    from zpaqfranz_tpu_torch.jidac.index import read_archive
+    from zpaqfranz_tpu_torch.ops import cm_encode as cme
+    from zpaqfranz_tpu_torch.parallel import multihost as mh
+
+    root = WORK / "mh" / "corpus"
+    text_corpus(np, root, MH_BYTES, seed)
+    date = 20260102030405              # scaling_report's date
+
+    def single(name: str, **kw) -> tuple:
+        t0 = time.perf_counter()
+        in_dir(root.parent, lambda: add(name, [root.name], method=MH_METHOD,
+                                        date=date, **kw))
+        torch.cuda.synchronize()
+        return (root.parent / name).read_bytes(), time.perf_counter() - t0
+
+    e0 = cme.launches
+    data, t_card = single("card.zpaq", device=dev)
+    check(cme.launches > e0, f"{MH_METHOD}: add did not launch the encoder")
+    host, t_host = single("host.zpaq", use_device=False)
+    check(data == host, f"{MH_METHOD}: the card's add differs from the "
+          f"host engine's")
+    nblocks = len(read_archive(data).block)
+    check(nblocks >= 4, f"{MH_METHOD}: {nblocks} d blocks, want 4")
+    want = hashlib.sha1(data).hexdigest()
+    log(f"multi-host add, {MH_METHOD} over {MH_BYTES} bytes ({nblocks} d "
+        f"blocks): one process {t_card:.2f} s on the card, {t_host:.2f} s "
+        f"on the host engine, identical")
+    launches = 0
+    for flags, worlds in ((["--device"], MH_WORLDS),
+                          (["--device", "--torch-dist"], MH_TORCH_WORLDS)):
+        t0 = time.perf_counter()
+        rep = mh.scaling_report(str(root), worlds=worlds, method=MH_METHOD,
+                                flags=flags, timeout=600)
+        for w in worlds:
+            r = rep[w]
+            check(r["archive_sha1"] == want, f"{flags} world {w}: the "
+                  f"archive differs from the single-process add's")
+            check(r["cm_encode_launches"] >= min(w, nblocks),
+                  f"{flags} world {w}: {r['cm_encode_launches']} encode "
+                  f"launches over its ranks")
+            launches += r["cm_encode_launches"]
+            log(f"  {' '.join(flags)} world {w}: {r['seconds']} s "
+                f"({r['MBps']} MB/s, efficiency {r['efficiency_vs_1']}), "
+                f"{r['cm_encode_launches']} encode launches over its ranks, "
+                f"archive identical")
+        log(f"  ({' '.join(flags)} worlds {worlds} took "
+            f"{time.perf_counter() - t0:.1f} s)")
+    shutil.rmtree(root.parent)
+    return launches
+
+
+def backup_commands(np, seed: int) -> int:
+    """``backup`` at -m4 twice (a changed file makes a second part), then
+    ``testbackup``, ``p`` and ``c`` on the parts, each through the CLI on
+    the card: the exit codes and lines, ``p`` and ``c`` equal to the host
+    engine's, and the CM decoder and the SHA-1 lanes launched."""
+    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+    from zpaqfranz_tpu_torch.ops import sha1
+
+    src = WORK / "bsrc"
+    make_corpus(np, src, BACKUP_BYTES, seed)
+    nfiles = len(tree_bytes(src))
+    parts = "bk_????????.zpaq"
+    for k in (1, 2):
+        e0 = cme.launches
+        t0 = time.perf_counter()
+        rc, out = run_cli(["backup", "bk", "bsrc", "-m4"])
+        check(rc == 0 and out.endswith(f"{k} parts indexed in "
+                                       f"bk_backup.txt\n"),
+              f"backup {k}: rc {rc}, {out!r}")
+        check(cme.launches > e0, f"backup {k} did not launch the encoder")
+        log(f"backup {k}: {out.strip()} ({time.perf_counter() - t0:.2f} s)")
+        victim = sorted(src.rglob("f*"))[0]
+        victim.write_bytes(victim.read_bytes() + b"changed %d" % k)
+    rc, out = run_cli(["testbackup", "bk"])
+    check((rc, out) == (0, "testbackup: 0 bad parts\n"),
+          f"testbackup: rc {rc}, {out!r}")
+    for argv, line in ((["p", parts], f"paranoid: {nfiles} files, "),
+                       (["c", parts], f"{nfiles - 1} identical, 1 differ, "
+                                      f"0 missing")):
+        d0, s0 = cmd.launches, sha1.launches
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        dt = time.perf_counter() - t0
+        check(line in out and rc == (1 if argv[0] == "c" else 0),
+              f"{argv[0]}: rc {rc}, {out!r}")
+        check(cmd.launches > d0 and sha1.launches > s0,
+              f"{argv[0]} did not launch the CM decoder and SHA-1 lanes")
+        host = run_cli(argv + ["-notpu"])
+        check(host == (rc, out), f"{argv[0]}: the card's lines differ from "
+              f"the host engine's: {host!r}")
+        log(f"{argv[0]} {parts}: {out.strip().splitlines()[-1]} in "
+            f"{dt:.2f} s on the card, the host engine's lines")
+    shutil.rmtree(src)
+    return 0
+
+
+def autotest_all() -> int:
+    """``autotest -all`` on the card: every level's round trip (levels 3-5
+    through the CM kernels) and the expected failures."""
+    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+
+    e0, d0 = cme.launches, cmd.launches
+    t0 = time.perf_counter()
+    rc, out = run_cli(["autotest", "-all"])
+    check(rc == 0 and out.rstrip().endswith("autotest: PASS")
+          and out.count("expected-failure=detected") == 3
+          and out.count(": OK (") == 6, f"autotest -all: rc {rc}, {out!r}")
+    check(cme.launches > e0 and cmd.launches > d0,
+          "autotest -all did not launch the CM kernels")
+    log(f"autotest -all: PASS in {time.perf_counter() - t0:.2f} s, "
+        f"{cme.launches - e0} encode and {cmd.launches - d0} decode "
+        f"launches")
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "zpaqfranz_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1277,6 +1503,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from zpaqfranz_tpu_torch.codec.methods import make_model
     from zpaqfranz_tpu_torch.device import resolve
     from zpaqfranz_tpu_torch.ops import build, cm_decode as cmd
     from zpaqfranz_tpu_torch.ops import cm_encode as cme, sha1, sha256
@@ -1288,7 +1515,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     labels = {}
-    for name, model in cm_models().items():
+    # every CM unit a path runs, built before the multi-host ranks start:
+    # the libraries are named by their sources' hash, so the ranks find them
+    models = {**cm_models(), MH_METHOD: make_model(MH_METHOD)[0]}
+    for name, model in models.items():
         for kernel in ("cm_decode", "cm_encode"):
             unit = (kernel, try_compile(model).cuda_source())
             labels.setdefault(build.unit_key(unit), (unit, []))[1].append(
@@ -1331,23 +1561,54 @@ def main() -> int:
     WORK.mkdir(parents=True)
     modules = {"sha1_lanes": sha1, "sha256_lanes": sha256, "cm_decode": cmd,
                "cm_encode": cme}
-    for mod in modules.values():
-        mod.launches = 0
-    for mod in (cmd, cme):
-        mod.hcomp_launches.update(fast=0, interp=0)
+
+    def path_counts(what: str, fn) -> dict:
+        """Run one path with every count set to 0 just before it; its
+        launches, read just after (``fn``'s return value: launches in
+        other processes, added to cm_encode)."""
+        for mod in modules.values():
+            mod.launches = 0
+        for mod in (cmd, cme):
+            mod.hcomp_launches.update(fast=0, interp=0)
+        t0 = time.perf_counter()
+        elsewhere = fn()
+        torch.cuda.synchronize()
+        got = {name: mod.launches for name, mod in modules.items()}
+        for name, mod in (("cm_decode", cmd), ("cm_encode", cme)):
+            got[f"{name}_hcomp_fast"] = mod.hcomp_launches["fast"]
+            check(mod.hcomp_launches == {"fast": mod.launches, "interp": 0},
+                  f"the {what}'s {name} launches did not all run the "
+                  f"specialised HCOMP step: {mod.hcomp_launches}")
+        got["cm_encode"] += elsewhere
+        log(f"{what} launches: {got}"
+            + (f" ({elsewhere} cm_encode in the ranks' processes)"
+               if elsewhere else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
+        return got
+
+    runs = []
+
+    def archive_path() -> int:
+        runs.extend([
+            main_path(torch, np, dev, "4", M4_BYTES, 4, damage=False),
+            main_path(torch, np, dev, "3", M3_BYTES, 3, damage=True),
+            main_path(torch, np, dev, "5", M5_BYTES, 5, damage=False)])
+        return 0
+
+    paths = (
+        ("main path", archive_path),
+        ("sharded lanes", lambda: sharded_lanes(torch, np, dev, 11)),
+        ("multi-host add", lambda: multihost_add(torch, np, dev, 12)),
+        ("backup commands", lambda: backup_commands(np, 13)),
+        ("autotest", autotest_all))
+    counts: dict = {}
     try:
-        runs = [main_path(torch, np, dev, "4", M4_BYTES, 4, damage=False),
-                main_path(torch, np, dev, "3", M3_BYTES, 3, damage=True),
-                main_path(torch, np, dev, "5", M5_BYTES, 5, damage=False)]
+        for what, fn in paths:
+            for name, n in path_counts(what, fn).items():
+                counts[name] = counts.get(name, 0) + n
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    counts = {name: mod.launches for name, mod in modules.items()}
-    for name, mod in (("cm_decode", cmd), ("cm_encode", cme)):
-        counts[f"{name}_hcomp_fast"] = mod.hcomp_launches["fast"]
-        check(mod.hcomp_launches == {"fast": mod.launches, "interp": 0},
-              f"the main path's {name} launches did not all run the "
-              f"specialised HCOMP step: {mod.hcomp_launches}")
-    log(f"main path launches: {counts}")
+    log(f"launches on the paths: {counts}")
     t0 = time.perf_counter()
     micro_counts = measurement_path(torch, dev)
     log(f"  (measurement path took {time.perf_counter() - t0:.1f} s)")

@@ -655,3 +655,76 @@ def test_verify_runs_in_several_launches(card, tmp_path, monkeypatch):
     jd.ht[j].sha1 = b"\x01" * 20
     with pytest.raises(ex.ExtractError, match=f"fragment {j}: checksum"):
         verify_archive(data, jd)
+
+
+def test_sharded_lanes_on_one_card_twice(card):
+    """Lanes split over [cuda:0] * 2: the unsharded launch's coded bytes
+    and the host engine's, one launch per shard each way, and decoded back
+    to the payloads."""
+    from zpaqfranz_tpu_torch import native
+    from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.parallel import dist, engine
+
+    model, _ = make_model("4.0")
+    rng = np.random.default_rng(12)
+    pays = [b"\x00" + b"the cat sat on the mat %d " % k * 40
+            + rng.integers(0, 256, 100 * k, dtype=np.uint8).tobytes()
+            for k in range(5)]
+    want = [parse_block_payload(native.compress_block(model, p[1:], b"t",
+                                                      b"c"), 0)[2][:-6]
+            for p in pays]
+    mesh = [torch.device("cuda", 0)] * 2
+    before = (cme.launches, cmd.launches)
+    coded = dist.encode_streams_sharded(model, pays, mesh)
+    assert coded == want == engine.encode_streams(model, pays, card)
+    back = dist.decode_streams_sharded(model, coded,
+                                       max(map(len, pays)) + 8, mesh)
+    assert back == pays
+    assert dist.decode_streams_sharded_chunked(
+        model, coded, max(map(len, pays)) + 8, mesh) == pays
+    assert cme.launches == before[0] + 3 and cmd.launches == before[1] + 4
+
+
+def test_dist_add_world2_on_card(card, tmp_path):
+    """Two ranks of the multi-host add, each coding its d blocks on the
+    card (``--device``), write the host engine's archive; each rank's
+    printed launch count shows the card coded its blocks."""
+    from zpaqfranz_tpu_torch.parallel import multihost as mh
+
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    rng = np.random.default_rng(3)
+    words = [bytes(rng.integers(97, 123, int(n), dtype=np.uint8))
+             for n in rng.integers(2, 9, 2000)]
+    for k in range(3):       # 1.2 MiB: two d blocks of 1 MiB at most
+        body = b" ".join(words[i] for i in rng.integers(0, 2000, 80000))
+        (corpus / f"t{k}.txt").write_bytes(body[:400 * 1024])
+    rep = mh.scaling_report(str(corpus), worlds=(2,), method="x0.0ci1",
+                            flags=["--device"], timeout=600)
+    host = mh.scaling_report(str(corpus), worlds=(1,), method="x0.0ci1",
+                             flags=["--notpu"], timeout=600)
+    assert rep[2]["archive_sha1"] == host[1]["archive_sha1"]
+    assert rep[2]["cm_encode_launches"] == 2      # one on each rank
+    assert host[1]["cm_encode_launches"] == 0
+
+
+def test_paranoid_and_compare_on_card(card, tmp_path, monkeypatch, capsys):
+    """``p`` and ``c`` decode on the card (CM lanes) and hash fragments in
+    the SHA-1 lanes, and print the host engine's lines."""
+    from zpaqfranz_tpu_torch.cli import main as cli_main
+
+    src = tmp_path / "src"
+    (src / "sub").mkdir(parents=True)
+    (src / "a.txt").write_bytes(b"hello world " * 400)
+    (src / "sub" / "c.txt").write_bytes(b"fox " * 800)
+    monkeypatch.chdir(tmp_path)
+    ref_add(str(tmp_path / "r.zpaq"), ["src"], method="3", date=DATE)
+    for cmd_name in ("p", "c"):
+        capsys.readouterr()
+        assert cli_main([cmd_name, "r", "-notpu"]) == 0
+        want = capsys.readouterr().out
+        before = (cmd.launches, sha1.launches)
+        assert cli_main([cmd_name, "r"]) == 0
+        assert capsys.readouterr().out == want
+        assert cmd.launches == before[0] + 1
+        assert sha1.launches == before[1] + 1

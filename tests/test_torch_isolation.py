@@ -22,7 +22,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "zpaqfranz_tpu" or m.startswith("zpaqfranz_tpu."))
-print(json.dumps({"imported": names, "bad": bad}))
+print(json.dumps({"imported": names, "bad": bad,
+                  "modules": sorted(m for m in sys.modules
+                                    if m.startswith("torch.distributed"))}))
 """
 
 
@@ -43,9 +45,19 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     for mod in ("ops.cm_model", "ops.cm_decode", "ops.cm_encode", "ops.sha1",
                 "ops.sha256", "experiments.mb_access",
-                "experiments.mb_vmem_probe", "parallel.device_bench"):
+                "experiments.mb_vmem_probe", "parallel.device_bench",
+                "parallel.dist", "parallel.multihost"):
         assert f"zpaqfranz_tpu_torch.{mod}" in out["imported"]
+    # multihost imports torch.distributed, which must not bring JAX in
+    assert "torch.distributed" in out["modules"]
     assert out["bad"] == []
+
+
+def test_multihost_worker_help_without_card():
+    res = _run(["-m", "zpaqfranz_tpu_torch.parallel.multihost", "--help"],
+               ROOT)
+    assert res.returncode == 0, res.stderr
+    assert "--torch-dist" in res.stdout and "--notpu" in res.stdout
 
 
 def test_smoke_fails_without_card_or_repository(tmp_path):

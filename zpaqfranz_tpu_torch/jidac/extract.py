@@ -25,7 +25,8 @@ from ..errors import ExtractError
 from .archive_io import ArchiveSource, as_source
 from .index import Block, Jidac, fragment_to_block
 
-__all__ = ["ExtractError", "extract", "select_files", "verify_archive"]
+__all__ = ["ExtractError", "decode_fragments", "extract", "select_files",
+           "verify_archive"]
 
 #: decoded bytes of whole blocks that ``verify_archive`` hashes in one
 #: launch of the SHA-1 lane kernel
@@ -236,65 +237,101 @@ def _batches(jd: Jidac) -> List[List[Block]]:
     return out
 
 
-def _verify_archive_device(data, jd: Jidac, threads: int,
-                           device) -> Tuple[int, int]:
-    """Decode blocks on host threads and hash every fragment that has a
-    stored SHA-1 in the SHA-1 lane kernel on ``device``, one launch per
-    batch of whole blocks of at most ``VERIFY_BATCH_BYTES``: a batch's
-    decoded blocks go over as one flat buffer (staged in pinned host
-    memory), each fragment a lane (offset, length) into it. The next
-    batch decodes while the current one hashes, so host memory holds about
-    two batches. Blocks and fragments are checked in archive order: the
-    first block that fails to decode or fragment that fails its checksum
-    raises."""
+def _check_lanes(jd: Jidac, blocks: List[Block], outs: List[bytes],
+                 device) -> int:
+    """Hash every fragment of ``blocks`` (decoded bytes ``outs``) that has
+    a stored SHA-1 as one lane of the SHA-1 kernel on ``device``, in one
+    launch: the decoded blocks go over as one flat buffer (staged in pinned
+    host memory), each fragment a lane (offset, length) into it. The first
+    block decoded short or fragment that fails its checksum raises; returns
+    the fragments hashed."""
     import torch
 
     from ..ops import sha1
 
-    def work(blk: Block) -> bytes:
-        out = _decode_block(data, blk)
-        if len(out) < sum(jd.ht[j].usize
-                          for j in range(blk.start, blk.start + blk.frags)):
+    frag_ids: List[int] = []
+    offs: List[int] = []
+    lens: List[int] = []
+    base = 0
+    for blk, out in zip(blocks, outs):
+        q = base
+        for j in range(blk.start, blk.start + blk.frags):
+            usize = jd.ht[j].usize
+            if jd.ht[j].sha1 != b"\x00" * 20:
+                frag_ids.append(j)
+                offs.append(q)
+                lens.append(usize)
+            q += usize
+        if q - base > len(out):
             raise ExtractError(f"block at {blk.offset}: fragments incomplete")
-        return out
+        base += len(out)
+    flat = sha1.stage_bytes(outs, device)
+    states = sha1.sha1_lanes(
+        flat, torch.tensor(offs, dtype=torch.int64).to(device),
+        torch.tensor(lens, dtype=torch.int64).to(device))
+    for j, dig in zip(frag_ids, sha1.to_digests(states)):
+        if dig != jd.ht[j].sha1:
+            raise ExtractError(f"fragment {j}: checksum failed")
+    return len(frag_ids)
 
-    def check(blocks: List[Block], outs: List[bytes]) -> int:
-        frag_ids: List[int] = []
-        offs: List[int] = []
-        lens: List[int] = []
-        base = 0
-        for blk, out in zip(blocks, outs):
-            q = base
-            for j in range(blk.start, blk.start + blk.frags):
-                usize = jd.ht[j].usize
-                if jd.ht[j].sha1 != b"\x00" * 20:
-                    frag_ids.append(j)
-                    offs.append(q)
-                    lens.append(usize)
-                q += usize
-            base += len(out)
-        flat = sha1.stage_bytes(outs, device)
-        states = sha1.sha1_lanes(
-            flat, torch.tensor(offs, dtype=torch.int64).to(device),
-            torch.tensor(lens, dtype=torch.int64).to(device))
-        for j, dig in zip(frag_ids, sha1.to_digests(states)):
-            if dig != jd.ht[j].sha1:
-                raise ExtractError(f"fragment {j}: checksum failed")
-        return len(frag_ids)
 
+def _verify_archive_device(data, jd: Jidac, threads: int,
+                           device) -> Tuple[int, int]:
+    """Decode blocks on host threads and hash their fragments in the SHA-1
+    lane kernel on ``device`` (``_check_lanes``), one launch per batch of
+    whole blocks of at most ``VERIFY_BATCH_BYTES``. The next batch decodes
+    while the current one hashes, so host memory holds about two batches.
+    Blocks and fragments are checked in archive order: the first block that
+    fails to decode or fragment that fails its checksum raises."""
     batches = _batches(jd)
     nfrag = 0
     with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as ex:
-        pending = [ex.submit(work, b) for b in batches[0]] if batches else []
+        pending = ([ex.submit(_decode_block, data, b) for b in batches[0]]
+                   if batches else [])
         for k, blocks in enumerate(batches):
             outs = [f.result() for f in pending]
-            pending = ([ex.submit(work, b) for b in batches[k + 1]]
+            pending = ([ex.submit(_decode_block, data, b)
+                        for b in batches[k + 1]]
                        if k + 1 < len(batches) else [])
             try:
-                nfrag += check(blocks, outs)
+                nfrag += _check_lanes(jd, blocks, outs, device)
             except BaseException:
                 for f in pending:
                     f.cancel()
                 raise
             del outs
     return len(jd.block), nfrag
+
+
+def decode_fragments(data, jd: Jidac, use_device: bool = True,
+                     device=None) -> Dict[int, bytes]:
+    """Every block of the archive decoded and cut into its fragments, each
+    fragment's SHA-1 checked: {fragment id: bytes} (``p`` and ``c``).
+
+    ``use_device``: decode modeled blocks as lanes of the CM decode kernel
+    on ``device`` (None = the CUDA card, which must be present; "cpu" = the
+    plain PyTorch versions), as ``extract`` does, and hash the fragments in
+    the SHA-1 lane kernel, one launch per batch of whole blocks of at most
+    ``VERIFY_BATCH_BYTES``, as ``verify_archive`` does. False = the host
+    engine, block by block, with the native SHA-1, as the reference's
+    ``p``."""
+    data = as_source(data)
+    frag_bytes: Dict[int, bytes] = {}
+    if not use_device:
+        for blk in jd.block:
+            frag_bytes.update(_verify_fragments(jd, blk,
+                                                _decode_block(data, blk)))
+        return frag_bytes
+    from ..device import resolve
+    from ..parallel.engine import decode_jidac_blocks
+    dev = resolve(device)
+    decoded = decode_jidac_blocks(data, jd, jd.block, dev)
+    for blocks in _batches(jd):
+        outs = [decoded.pop(b.offset) for b in blocks]
+        _check_lanes(jd, blocks, outs, dev)
+        for blk, out in zip(blocks, outs):
+            q = 0
+            for j in range(blk.start, blk.start + blk.frags):
+                frag_bytes[j] = out[q:q + jd.ht[j].usize]
+                q += jd.ht[j].usize
+    return frag_bytes

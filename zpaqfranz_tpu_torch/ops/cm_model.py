@@ -23,6 +23,7 @@ after each gather.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,9 @@ from ..zpaql.header import Model
 from ..zpaql.vm import VM, ZPAQLRuntimeError
 from . import build
 from .hcomp_fast import try_compile
+
+#: held while a launch adds to its kernel's count (``counted``)
+_COUNT_LOCK = threading.Lock()
 
 ST_OK, ST_OVERRUN, ST_CORRUPT, ST_EOF, ST_ZPAQL = range(5)
 
@@ -530,7 +534,8 @@ class LaneLaunch:
             raise RuntimeError(f"a prepared {self.kernel} launch runs once")
         self._ran = True
         build.call(self.unit, f"{self.kernel}_launch", self.dev, *self._args)
-        self.counted()
+        with _COUNT_LOCK:         # shards launch from several threads
+            self.counted()
         return self
 
     def profile(self) -> np.ndarray:
