@@ -5,8 +5,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA sources (``zpaqfranz_tpu_torch/csrc/*.cu``)
-with their eleven kernels, and the CM decode and encode kernels once more
+It builds the port's seven CUDA sources (``zpaqfranz_tpu_torch/csrc/*.cu``)
+with their twelve kernels, and the CM decode and encode kernels once more
 for each HCOMP program of its models that ``ops/hcomp_fast.py``
 specialises (-m3, -m4, -m5 and the all-components model), one ``nvcc``
 each, all started together, into ``zpaqfranz_tpu_torch/build/``, printing
@@ -22,12 +22,18 @@ instructions and the chain of the longest lane, from a profiled lane
 alone; the CM kernels also against the native host engine, with each
 model's placement printed: G threads per lane, lanes per block, shared
 bytes; then one lane per level for its rate and a profiled breakdown of a
-bit, with each HCOMP step, beside the interpreter design's), the seven
+bit, with each HCOMP step, beside the interpreter design's), the CRC-32
+lane kernel (one 1 MiB lane alone for its step, 1,024 lanes of 1-4 KiB and
+the fragment shape against its plain version and ``native.crc32``, timed
+beside its bound), the seven
 table-access
 microbenchmark kernels (``experiments/mb_access.py`` A-E,
 ``experiments/mb_vmem_probe.py`` P1, P2) at every shape their scripts
 time, on the scripts' inputs and on seeded random tables and indices of
-the same shapes. Then it drives the port's paths on the card. The
+the same shapes. The device BWT (``pre/bwt_device.py``) sorts one 16 MiB
+block of text on the card, byte-identical to ``native.bwt_encode``, with
+its rounds and the share of ``torch.sort``. Then it drives the port's
+paths on the card. The
 archive path at -m4 (16 MiB blocks), -m3 and -m5: ``add``
 writes a seeded corpus as a jidac archive through the CM encode kernel,
 byte-identical to the host engine's ``add`` of the same tree and date;
@@ -44,6 +50,14 @@ every world's archive equal to one ``add`` on the card and on the host
 engine, each rank's CM encode launches read from its printed count. The
 CLI: ``backup`` at -m4 twice (a second part), ``testbackup``, ``p`` and
 ``c`` on the parts, equal to the host engine's lines; ``autotest -all``.
+The batched-hash API (``ops/hash_batched.py``): ``sha1_lanes``,
+``sha256_lanes`` and ``crc32_lanes`` over the fragment shape as padded rows,
+equal to hashlib and ``native.crc32``. The batched coders
+(``ops/coder_batched.py``) at -m4, equal to the host engine's streams,
+and the per-bit ``BatchedPredictor`` on the card, equal to the scalar
+predictor.
+``zfsbackup`` twice and ``zfsrestore`` at -m4 through the CLI on a fake
+``zfs``, the received streams equal to the sent ones.
 The measurement path: the two microbenchmark entry points' ``main()``, and the
 device bench's whole lane ladder (SHA-1 lanes, then CM encode and decode
 at -m3 x 256 and x 1024 lanes and "4.0" x 8 and x 32, every lane equal to
@@ -54,9 +68,9 @@ sums them. Scratch files go to
 ``build/smoke/`` and are removed at the end.
 
 Output: per-phase lines, then one JSON line of kernel measurements (in the
-order: SHA-1, SHA-256, CM decode, CM encode, the specialised HCOMP step in
-the CM decode and encode kernels, A-E, P1, P2), the card's name and power
-limit, and last ``{"ok": true, "device": ...}``.
+order: SHA-1, SHA-256, CM decode, CM encode, CRC-32, the specialised HCOMP
+step in the CM decode and encode kernels, A-E, P1, P2), the card's name and
+power limit, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero; so does a machine without a CUDA card, or a
 directory that does not hold the repository.
 """
@@ -81,7 +95,8 @@ WORK = ROOT / "build" / "smoke"
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and INT32 issue rate
 # = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 # Instructions of one SHA-1 compression (FIPS 180-4) as Hopper issues them,
 # counted from csrc/sha1_lanes.cu with 3-input logic fused into one LOP3
 # and 3-input adds into one IADD3: per round rotl(a,5), f (1 LOP3), the
@@ -147,6 +162,35 @@ FRAG_LANES = 16384
 FRAG_MIN, FRAG_MAX = 4 << 10, 128 << 10
 # the one-lane profile: one lane of 1 MiB alone
 PROFILE_LANE = 1 << 20
+# the CRC-32 lane kernel: held against its plain version on a cut shape,
+# 1,024 lanes of log-uniform 1-4 KiB, and on the fragment shape, where the
+# plain version's few launches a byte step take ~20 s; through
+# hash_batched.crc32_lanes on the fragment shape
+CRC_CUT_LANES = 1024
+CRC_CUT_MIN, CRC_CUT_MAX = 1 << 10, 4 << 10
+# 32-bit integer instructions of one CRC-32 byte step, counted from
+# csrc/crc32_lanes.cu: the byte's extract, its XOR into the CRC, the table
+# index and address, the shared-memory load, the CRC's shift and the XOR
+CRC_OPS_PER_BYTE = 6
+# Cycles of one CRC-32 byte step's dependent chain, from the same source:
+# the byte's XOR into the CRC (one LOP3, 4 cycles), the table's address
+# (one LEA, 4), the shared-memory load (~30, the dependent shared-memory
+# load latency that microbenchmarks of Hopper report) and the XOR with the
+# CRC shifted down (one LOP3, 4; the shift is off the path). At the boost
+# clock, times the longest lane's bytes, they make the chain floor: no
+# launch at one thread a lane can take that lane faster.
+CRC_CHAIN_CYCLES = 4 + 4 + 30 + 4
+# the device BWT: one block of -m3's default block size (16 MiB), text
+BWT_BYTES = 16 << 20
+# the batched coders at -m4 (16 MiB-block widths): 4 lanes of 16 KiB
+BATCHED_LANES = 4
+BATCHED_LANE_BYTES = 16 << 10
+# the per-bit predictor on the card: 3 lanes of 16 bytes (a few hundred
+# torch ops a bit)
+PREDICTOR_BYTES = 16
+# zfsbackup / zfsrestore at -m4 on a fake zfs: a 128 KiB dataset, backed up
+# twice (the second time with a changed tail)
+ZFS_BYTES = 128 << 10
 # CM kernel vs plain: four short lanes per model. The plain version runs a
 # few hundred tensor ops per coded bit (~80 ms per decoded byte at -m4), so
 # a main-path lane of ~1 MB would take about a day; longer lanes are held
@@ -531,6 +575,111 @@ def check_hash(torch, np, dev, seed: int, algo: str) -> dict:
             "replaces": "zpaqfranz_tpu/ops/hash_pallas.py:216",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def fragment_shape(np, seed: int) -> tuple:
+    """The fragment shape's lane lengths and bytes, back to back."""
+    rng = np.random.default_rng(seed)
+    lens = np.exp(rng.uniform(np.log(FRAG_MIN), np.log(FRAG_MAX),
+                              FRAG_LANES)).astype(np.int64)
+    return lens, rng.bytes(int(lens.sum()))
+
+
+def crc_words(torch, t) -> list:
+    """A uint32 tensor's values as Python ints."""
+    return (t.view(torch.int32).long() & 0xFFFFFFFF).tolist()
+
+
+def check_crc(torch, np, dev, seed: int, lens, frag) -> dict:
+    """Hold the CRC-32 lane kernel bit for bit against its plain version
+    (``hash_batched.crc32_plain``, on the card) and ``native.crc32``: one
+    lane of 1 MiB alone, timed (its byte step beside the chain's,
+    ``CRC_CHAIN_CYCLES``); a cut shape of ``CRC_CUT_LANES`` lanes; the
+    fragment shape, timed with CUDA events beside its bound: bytes,
+    operations and the chain floor (the longest lane's bytes at
+    ``CRC_CHAIN_CYCLES`` a byte). Returns the JSON entry and the
+    fragments' CRCs."""
+    from zpaqfranz_tpu_torch import native
+    from zpaqfranz_tpu_torch.ops import build, hash_batched as hb, sha1
+
+    rng = np.random.default_rng(seed)
+
+    def launch_ms(data, off, length) -> float:
+        """The kernel alone: CUDA events around launches with the checks
+        done and the output allocated once."""
+        out = torch.empty(off.shape[0], dtype=torch.uint32, device=dev)
+        return cuda_ms(torch, lambda: build.call(
+            "crc32_lanes", "crc32_lanes_launch", dev, data, off, length, out,
+            off.shape[0], data.numel()), 5)
+
+    def against_plain(data, off, length, what: str) -> tuple:
+        got = hb.crc32_flat(data, off, length)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = hb.crc32_plain(data, off, length)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(abs(a - b) for a, b in zip(crc_words(torch, got),
+                                             crc_words(torch, plain)))
+        check(err == 0, f"crc32 kernel differs from its plain version "
+              f"({what})")
+        return got, err, plain_ms
+
+    one = rng.bytes(PROFILE_LANE)
+    data, off, length = sha1.pack_messages([one], dev)
+    check(crc_words(torch, hb.crc32_flat(data, off, length))
+          == [native.crc32(one)], "crc32 kernel differs from native.crc32 "
+          "(one lane)")
+    one_ms = launch_ms(data, off, length)
+    step_ns = one_ms * 1e6 / PROFILE_LANE
+    chain_ns = CRC_CHAIN_CYCLES / SM_CLOCK_HZ * 1e9
+    log(f"crc32_lanes one lane of {PROFILE_LANE} bytes alone: kernel "
+        f"{one_ms:.3f} ms, {step_ns:.2f} ns a byte step = "
+        f"{step_ns * SM_CLOCK_HZ / 1e9:.0f} cycles at "
+        f"{SM_CLOCK_HZ / 1e9:.2f} GHz, {step_ns / chain_ns:.2f}x the chain's "
+        f"{CRC_CHAIN_CYCLES} cycles ({chain_ns:.2f} ns: LOP3, LEA, a "
+        f"shared-memory load, LOP3)")
+
+    cut = np.exp(rng.uniform(np.log(CRC_CUT_MIN), np.log(CRC_CUT_MAX),
+                             CRC_CUT_LANES)).astype(np.int64)
+    msgs = [rng.bytes(int(n)) for n in cut]
+    data, off, length = sha1.pack_messages(msgs, dev)
+    got, _, cut_plain_ms = against_plain(data, off, length, "cut shape")
+    check(crc_words(torch, got) == [native.crc32(m) for m in msgs],
+          "crc32 kernel differs from native.crc32 (cut shape)")
+    log(f"crc32_lanes: {CRC_CUT_LANES} lanes of log-uniform {CRC_CUT_MIN}-"
+        f"{CRC_CUT_MAX} bytes: kernel {launch_ms(data, off, length):.4f} ms, "
+        f"plain {cut_plain_ms:.1f} ms; equal to the plain version and "
+        f"native.crc32")
+
+    ends = np.cumsum(lens)
+    t0 = time.perf_counter()
+    want = [native.crc32(frag[e - n:e]) for e, n in zip(ends, lens)]
+    native_s = time.perf_counter() - t0
+    data = sha1.stage_bytes([frag], dev)
+    off = torch.from_numpy(ends - lens).to(dev)
+    length = torch.from_numpy(lens).to(dev)
+    got, err, plain_ms = against_plain(data, off, length, "fragments")
+    check(crc_words(torch, got) == want,
+          "crc32 kernel differs from native.crc32 (fragments)")
+    ms = launch_ms(data, off, length)
+    nbytes = int(lens.sum())
+    b = {"bytes": (nbytes + 20 * len(lens)) / HBM_BYTES_PER_S * 1e3,
+         "operations": nbytes * CRC_OPS_PER_BYTE / INT32_OPS_PER_S * 1e3,
+         "chain": int(lens.max()) * chain_ns / 1e6}
+    b_ms, b_by = bound(nbytes + 20 * len(lens), nbytes * CRC_OPS_PER_BYTE)
+    log(f"crc32_lanes: fragments, {FRAG_LANES} lanes, {nbytes} bytes: "
+        f"kernel {ms:.3f} ms ({nbytes / ms / 1e6:.2f} GB/s, "
+        f"{ms / b['chain']:.2f}x the chain floor), {bound_text(b)}; plain "
+        f"{plain_ms:.1f} ms; native.crc32 on the "
+        f"host {native_s * 1e3:.1f} ms; equal to the plain version and "
+        f"native.crc32")
+    del data
+    return {"name": "crc32_lanes", "route": "cuda",
+            "source": "zpaqfranz_tpu_torch/csrc/crc32_lanes.cu",
+            "replaces": "zpaqfranz_tpu/ops/hash_batched.py:212",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}, want
 
 
 def coded_stream(model, payload: bytes) -> bytes:
@@ -1473,6 +1622,274 @@ def backup_commands(np, seed: int) -> int:
     return 0
 
 
+def batched_hash_path(torch, np, dev, lens, frag, crcs) -> int:
+    """The batched-hash lane API (``ops/hash_batched.py``) on the fragment
+    shape as padded (L, N) rows on the card: ``sha1_lanes``,
+    ``sha256_lanes`` and ``crc32_lanes``, equal to hashlib and
+    ``native.crc32``."""
+    from zpaqfranz_tpu_torch.ops import hash_batched as hb
+
+    ends = np.cumsum(lens)
+    rows, lengths = hb.pad_lanes([frag[e - n:e] for e, n in zip(ends, lens)])
+    rows = torch.from_numpy(rows).to(dev)
+    for algo, ref in (("sha1", hashlib.sha1), ("sha256", hashlib.sha256),
+                      ("crc32", None)):
+        t0 = time.perf_counter()
+        got = getattr(hb, f"{algo}_lanes")(rows, lengths)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if ref is None:
+            check(crc_words(torch, got) == crcs, "hash_batched.crc32_lanes "
+                  "differs from native.crc32")
+        else:
+            check(hb.digest_bytes(got) == [ref(frag[e - n:e]).digest()
+                                           for e, n in zip(ends, lens)],
+                  f"hash_batched.{algo}_lanes differs from hashlib")
+        log(f"hash_batched.{algo}_lanes: {len(lens)} rows of "
+            f"{rows.shape[1]} bytes ({int(lens.sum())} message bytes) on the "
+            f"card in {dt * 1e3:.1f} ms, the call; equal to "
+            f"{'native.crc32' if ref is None else 'hashlib'}")
+    del rows
+    return 0
+
+
+def device_bwt(torch, np, dev, seed: int) -> None:
+    """``bwt_encode_device`` at full width: one 16 MiB block of text on the
+    card, byte-identical to ``native.bwt_encode`` and inverted by the -m3
+    postprocessor; the rounds, the seconds on the card and on the host, and
+    the share of ``torch.sort`` (CUDA events around each sort)."""
+    from zpaqfranz_tpu_torch import native
+    from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.pre import bwt_device
+
+    rng = np.random.default_rng(seed)
+    vocab = [bytes(rng.integers(97, 123, int(k), dtype=np.uint8))
+             for k in rng.integers(2, 10, 5000)]
+    idx = rng.zipf(1.2, BWT_BYTES // 3) % len(vocab)
+    data = b" ".join(vocab[i] for i in idx)[:BWT_BYTES]
+    check(len(data) == BWT_BYTES, "BWT block came out short")
+    t0 = time.perf_counter()
+    want = native.bwt_encode(data)
+    native_s = time.perf_counter() - t0
+
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    sorts = []
+    sort = torch.sort
+
+    def timed_sort(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = sort(*args, **kw)
+        b.record()
+        sorts.append((a, b))
+        return res
+
+    # CUDA events around each sort of one suffix sort: torch.sort wrapped
+    # for that call alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.sort = timed_sort
+    try:
+        sa, rounds = bwt_device.prefix_doubling(x)
+        torch.cuda.synchronize()
+    finally:
+        torch.sort = sort
+    sa_s = time.perf_counter() - t0
+    sort_ms = sum(a.elapsed_time(b) for a, b in sorts)
+    del sa, x
+    l0 = bwt_device.launches
+    t0 = time.perf_counter()
+    got = bwt_device.bwt_encode_device(data)
+    dev_s = time.perf_counter() - t0
+    check(bwt_device.launches == l0 + 1, "bwt_encode_device did not run on "
+          "the card")
+    check(got == want, "bwt_encode_device differs from native.bwt_encode")
+    model = make_model("3")[0]
+    check(native.postprocess(model.ph, model.pm, selector(model) + got,
+                             out_hint=len(data)) == data,
+          "the device BWT does not invert through the -m3 postprocessor")
+    b_ms = (2 * len(data) + 5) / HBM_BYTES_PER_S * 1e3
+    log(f"device BWT, one {len(data)}-byte block of text (-m3's block "
+        f"size): {rounds} rounds ({len(sorts)} stable sorts), "
+        f"bwt_encode_device {dev_s:.3f} s on the card (suffix sort "
+        f"{sa_s:.3f} s, torch.sort {sort_ms:.1f} ms = "
+        f"{sort_ms / 1e3 / sa_s:.1%} of it), native.bwt_encode "
+        f"{native_s:.3f} s on the host; equal to native.bwt_encode, "
+        f"inverted by the -m3 postprocessor; bound {b_ms:.4f} ms (bytes)")
+
+
+def batched_coders(torch, np, dev, seed: int) -> int:
+    """``BatchedEncoder`` / ``BatchedDecoder`` (``ops/coder_batched.py``)
+    at -m4 on the card: the host engine's coded segments, decoded back to
+    the payloads; then ``BatchedPredictor`` per bit on the card, equal to
+    the scalar predictor."""
+    from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.models.predictor import Predictor
+    from zpaqfranz_tpu_torch.ops.coder_batched import (BatchedDecoder,
+                                                       BatchedEncoder)
+    from zpaqfranz_tpu_torch.ops.predictor_batched import BatchedPredictor
+    from zpaqfranz_tpu_torch.zpaql.compiler import compile_config
+
+    model = make_model("4")[0]
+    rng = np.random.default_rng(seed)
+    raws = lane_payloads(np, rng, [BATCHED_LANE_BYTES] * BATCHED_LANES)
+    lanes = [selector(model) + r for r in raws]
+
+    def rows(bs):
+        out = np.zeros((len(bs), max(map(len, bs))), np.uint8)
+        for i, b in enumerate(bs):
+            out[i, :len(b)] = np.frombuffer(b, np.uint8)
+        return out
+
+    t0 = time.perf_counter()
+    out, cnt = BatchedEncoder(model).encode(rows(lanes), list(map(len,
+                                                                  lanes)))
+    enc_s = time.perf_counter() - t0
+    coded = [coded_stream(model, r) for r in raws]
+    check([bytes(out[i, :cnt[i]]) for i in range(len(raws))]
+          == [c[:-6] for c in coded], "BatchedEncoder at -m4 differs from "
+          "the host engine")
+    t0 = time.perf_counter()
+    dec, dl = BatchedDecoder(model).decode(rows(coded),
+                                           max(map(len, lanes)) + 8)
+    dec_s = time.perf_counter() - t0
+    check([bytes(dec[i, :dl[i]]) for i in range(len(raws))] == lanes,
+          "BatchedDecoder at -m4 does not give the payloads back")
+    log(f"batched coders, -m4 x {BATCHED_LANES} lanes of "
+        f"{BATCHED_LANE_BYTES} bytes: encode {enc_s:.2f} s, decode "
+        f"{dec_s:.2f} s on the card; the host engine's streams, decoded "
+        f"back")
+
+    # the per-bit predictor, on the card by default: every component type,
+    # three lanes in lockstep, each lane's probability the scalar
+    # predictor's at every bit
+    model = compile_config(ALL_COMPONENTS_CFG)[0]
+    bp = BatchedPredictor(model)
+    st = bp.init_state(3)
+    check(st.dev.type == "cuda", "BatchedPredictor did not run on the card")
+    lanes = [payload[:PREDICTOR_BYTES] for payload in raws[:3]]
+    scalars = [Predictor(model) for _ in lanes]
+    t0 = time.perf_counter()
+    for j in range(PREDICTOR_BYTES):
+        for phase in range(8):
+            p_final, p, st = bp.predict(st, phase)
+            check(p_final.tolist() == [sc.predict() for sc in scalars],
+                  "BatchedPredictor differs from the scalar predictor")
+            y = [(lane[j] >> (7 - phase)) & 1 for lane in lanes]
+            st = bp.update(st, p, y, phase)
+            for sc, b in zip(scalars, y):
+                sc.update(b)
+    log(f"BatchedPredictor, every component type x 3 lanes of "
+        f"{PREDICTOR_BYTES} bytes, per bit on the card: "
+        f"{time.perf_counter() - t0:.2f} s (host clock, the scalar "
+        f"predictor beside it); equal to the scalar predictor")
+    return 0
+
+
+# a fake zfs for zfsbackup / zfsrestore: datasets are directories of a pool
+# ($FAKE_POOL), a snapshot a copy, a send stream a header line and a tar of
+# the snapshot; every stream sent and received is also kept
+FAKE_ZFS = r"""#!/usr/bin/env python3
+import io, os, pathlib, shutil, sys, tarfile
+POOL = pathlib.Path(os.environ["FAKE_POOL"])
+def snap_dir(name):
+    ds, snap = name.split("@", 1)
+    return POOL / ".snaps" / ds.replace("/", "_") / snap
+def keep(kind, data):
+    d = POOL / kind
+    d.mkdir(exist_ok=True)
+    (d / str(len(list(d.iterdir())))).write_bytes(data)
+cmd = sys.argv[1]
+if cmd == "snapshot":
+    d = snap_dir(sys.argv[2])
+    d.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copytree(POOL / sys.argv[2].split("@", 1)[0], d)
+    with open(d.parent / "ORDER", "a") as f:
+        f.write(sys.argv[2] + "\n")
+elif cmd == "list":
+    order = POOL / ".snaps" / sys.argv[-1].replace("/", "_") / "ORDER"
+    if order.exists():
+        sys.stdout.write(order.read_text())
+elif cmd == "send":
+    name = sys.argv[-1]
+    head = (f"INCR {sys.argv[3]} {name}\n" if sys.argv[2] == "-i"
+            else f"FULL {name}\n")
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as t:
+        t.add(snap_dir(name), arcname="snap")
+    data = head.encode() + buf.getvalue()
+    keep(".sent", data)
+    sys.stdout.buffer.write(data)
+elif cmd == "receive":
+    data = sys.stdin.buffer.read()
+    keep(".received", data)
+    out = POOL / sys.argv[-1]
+    if out.exists():
+        shutil.rmtree(out)
+    with tarfile.open(fileobj=io.BytesIO(data[data.index(b"\n") + 1:])) as t:
+        t.extractall(POOL / ".rx")
+    shutil.move(str(POOL / ".rx" / "snap"), str(out))
+else:
+    sys.exit(1)
+"""
+
+
+def zfs_commands(np, seed: int) -> int:
+    """``zfsbackup`` twice and ``zfsrestore`` at -m4 through the CLI on the
+    card, on a fake zfs (``ZPAQ_ZFS_CMD``): the streams received are the
+    streams sent, the restored dataset the backed-up one, and the CM
+    kernels launched."""
+    from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+
+    pool = WORK / "pool"
+    ds = "tank/data"
+    (pool / ds).mkdir(parents=True)
+    shim = WORK / "zfs"
+    shim.write_text(FAKE_ZFS)
+    shim.chmod(0o755)
+    saved = {k: os.environ.get(k) for k in ("ZPAQ_ZFS_CMD", "FAKE_POOL")}
+    os.environ.update(ZPAQ_ZFS_CMD=str(shim), FAKE_POOL=str(pool))
+    rng = np.random.default_rng(seed)
+    body = lane_payloads(np, rng, [ZFS_BYTES])[0]
+    try:
+        for k in (1, 2):
+            (pool / ds / "data.bin").write_bytes(body)
+            e0 = cme.launches
+            t0 = time.perf_counter()
+            rc, out = run_cli(["zfsbackup", "z", ds, "-m4"])
+            check(rc == 0 and f"@zpaqfranz0000000{k - 1}:" in out,
+                  f"zfsbackup {k}: rc {rc}, {out!r}")
+            check(cme.launches > e0, f"zfsbackup {k} did not launch the CM "
+                  f"encoder")
+            log(f"zfsbackup {k} -m4: {out.strip()} "
+                f"({time.perf_counter() - t0:.2f} s)")
+            body = body[:-4096] + rng.bytes(4096)
+        d0 = cmd.launches
+        t0 = time.perf_counter()
+        rc, out = run_cli(["zfsrestore", "z", ds, "-to", "tank/back"])
+        dt = time.perf_counter() - t0
+        check((rc, out) == (0, "2 streams received\n"),
+              f"zfsrestore: rc {rc}, {out!r}")
+        check(cmd.launches > d0, "zfsrestore did not launch the CM decoder")
+        sent = [(pool / ".sent" / str(i)).read_bytes() for i in range(2)]
+        got = [(pool / ".received" / str(i)).read_bytes() for i in range(2)]
+        check(got == sent, "zfsrestore: the received streams differ from "
+              "the sent ones")
+        check((pool / "tank" / "back" / "data.bin").read_bytes()
+              == (pool / ds / "data.bin").read_bytes(),
+              "zfsrestore: the restored dataset differs")
+        log(f"zfsrestore -m4: 2 streams of {list(map(len, sent))} bytes "
+            f"received in {dt:.2f} s, equal to the streams sent")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return 0
+
+
 def autotest_all() -> int:
     """``autotest -all`` on the card: every level's round trip (levels 3-5
     through the CM kernels) and the expected failures."""
@@ -1507,6 +1924,7 @@ def main() -> int:
     from zpaqfranz_tpu_torch.device import resolve
     from zpaqfranz_tpu_torch.ops import build, cm_decode as cmd
     from zpaqfranz_tpu_torch.ops import cm_encode as cme, sha1, sha256
+    from zpaqfranz_tpu_torch.ops import hash_batched as hb
     from zpaqfranz_tpu_torch.ops.hcomp_fast import try_compile
 
     card = card_line()
@@ -1547,6 +1965,15 @@ def main() -> int:
         log(f"  ({kernels[-1]['name']} checks took "
             f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
+    lens, frag = fragment_shape(np, 10)
+    entry, crcs = check_crc(torch, np, dev, 9, lens, frag)
+    kernels.append(entry)
+    torch.cuda.synchronize()
+    log(f"  (crc32_lanes checks took {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    device_bwt(torch, np, dev, 14)
+    log(f"  (device BWT took {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     kernels += hcomp_entries(profile_cm(torch, np, dev, 8),
                              {k["name"]: k["max_abs_err"] for k in kernels})
     log(f"  (CM one-lane rates and profiles took "
@@ -1560,7 +1987,7 @@ def main() -> int:
         shutil.rmtree(WORK)
     WORK.mkdir(parents=True)
     modules = {"sha1_lanes": sha1, "sha256_lanes": sha256, "cm_decode": cmd,
-               "cm_encode": cme}
+               "cm_encode": cme, "crc32_lanes": hb}
 
     def path_counts(what: str, fn) -> dict:
         """Run one path with every count set to 0 just before it; its
@@ -1600,7 +2027,11 @@ def main() -> int:
         ("sharded lanes", lambda: sharded_lanes(torch, np, dev, 11)),
         ("multi-host add", lambda: multihost_add(torch, np, dev, 12)),
         ("backup commands", lambda: backup_commands(np, 13)),
-        ("autotest", autotest_all))
+        ("autotest", autotest_all),
+        ("batched-hash path", lambda: batched_hash_path(
+            torch, np, dev, lens, frag, crcs)),
+        ("batched coders", lambda: batched_coders(torch, np, dev, 15)),
+        ("zfs commands", lambda: zfs_commands(np, 16)))
     counts: dict = {}
     try:
         for what, fn in paths:

@@ -28,9 +28,15 @@ from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
 from zpaqfranz_tpu_torch.jidac.add import add
 from zpaqfranz_tpu_torch.jidac.extract import extract, verify_archive
 from zpaqfranz_tpu_torch.jidac.index import read_archive
+from zpaqfranz_tpu_torch.models.predictor import Predictor
 from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
 from zpaqfranz_tpu_torch.ops.cm_model import Placement
+from zpaqfranz_tpu_torch.ops.predictor_batched import BatchedPredictor
+from zpaqfranz_tpu_torch.ops import hash_batched as hb
 from zpaqfranz_tpu_torch.ops import sha1, sha256
+from zpaqfranz_tpu_torch.ops.coder_batched import (BatchedDecoder,
+                                                   BatchedEncoder)
+from zpaqfranz_tpu_torch.pre import bwt_device
 from zpaqfranz_tpu_torch.parallel import device_bench
 from zpaqfranz_tpu_torch.parallel.engine import parse_block_payload
 
@@ -728,3 +734,133 @@ def test_paranoid_and_compare_on_card(card, tmp_path, monkeypatch, capsys):
         assert capsys.readouterr().out == want
         assert cmd.launches == before[0] + 1
         assert sha1.launches == before[1] + 1
+
+
+def _crc_spans(data, spans):
+    """The kernel's CRCs of ``data[o:o + n]`` for ``spans`` against its
+    plain version and native.crc32; one launch."""
+    host = data.cpu().numpy().tobytes()
+    off = torch.tensor([o for o, _ in spans], dtype=torch.int64,
+                       device=data.device)
+    ln = torch.tensor([n for _, n in spans], dtype=torch.int64,
+                      device=data.device)
+    before = hb.launches
+    got = hb.crc32_flat(data, off, ln)
+    torch.cuda.synchronize()
+    assert hb.launches == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       hb.crc32_plain(data, off, ln).view(torch.int32))
+    assert [int(c) & 0xFFFFFFFF for c in got.view(torch.int32).tolist()] \
+        == [ref_native.crc32(host[o:o + n]) for o, n in spans]
+
+
+def test_crc32_kernel_at_every_offset_and_length(card):
+    rng = np.random.default_rng(41)
+    data = torch.from_numpy(rng.integers(0, 256, 1001, dtype=np.uint8)).to(
+        card)
+    _crc_spans(data, [(o, n) for o in range(64)
+                      for n in (0, 1, 2, 15, 16, 17, 31, 32, 33, 64, 300)])
+
+
+@pytest.mark.parametrize("start", [0, 5, 16])
+def test_crc32_kernel_reads_to_the_last_byte_of_data(card, start):
+    # views of 4,099 bytes (not a multiple of 16) at offsets of one buffer
+    rng = np.random.default_rng(42)
+    buf = torch.from_numpy(rng.integers(0, 256, 5000, dtype=np.uint8)).to(
+        card)
+    _crc_spans(buf[start:start + 4099], [(4099 - n, n) for n in
+                                         (0, 1, 15, 16, 17, 64, 65, 4099)])
+
+
+@pytest.mark.parametrize("count", [1, 63, 64, 65, 8449, 150_000])
+def test_crc32_kernel_at_lane_counts(card, count):
+    # one thread block (64 lanes), a block +- 1, one block per SM + 1, and
+    # many waves
+    rng = np.random.default_rng(count)
+    data = torch.from_numpy(rng.integers(0, 256, 20_000, dtype=np.uint8)).to(
+        card)
+    lens = rng.integers(0, 300, count)
+    offs = rng.integers(0, 20_000 - 300, count)
+    _crc_spans(data, list(zip(offs.tolist(), lens.tolist())))
+
+
+def test_hash_batched_lanes_on_card(card):
+    rng = np.random.default_rng(43)
+    chunks = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+              for n in (0, 1, 15, 16, 63, 64, 65, 4096, 70_000)]
+    data, lens = hb.pad_lanes(chunks)
+    before = (sha1.launches, sha256.launches, hb.launches)
+    s1 = hb.sha1_lanes(data, lens)
+    s2 = hb.sha256_lanes(data, lens)
+    crc = hb.crc32_lanes(data, lens)
+    assert crc.device.type == "cuda"
+    assert (sha1.launches, sha256.launches, hb.launches) == tuple(
+        b + 1 for b in before)
+    assert hb.digest_bytes(s1) == [hashlib.sha1(c).digest() for c in chunks]
+    assert hb.digest_bytes(s2) == [hashlib.sha256(c).digest()
+                                   for c in chunks]
+    assert [int(c) & 0xFFFFFFFF for c in crc.view(torch.int32).tolist()] \
+        == [ref_native.crc32(c) for c in chunks]
+
+
+@pytest.mark.parametrize("kind", ["random", "text", "zeros"])
+def test_bwt_encode_device_on_card(card, kind):
+    rng = np.random.default_rng(44)
+    n = 1 << 20
+    data = {"random": rng.integers(0, 256, n, dtype=np.uint8).tobytes(),
+            "text": (b"the quick brown fox jumps " * (n // 26 + 1))[:n],
+            "zeros": bytes(4096)}[kind]
+    before = bwt_device.launches
+    assert bwt_device.bwt_encode_device(data) == ref_native.bwt_encode(data)
+    assert bwt_device.launches == before + 1
+    sa = bwt_device.suffix_array_device(data[:5000])
+    assert np.array_equal(sa, bwt_device.suffix_array_device(
+        data[:5000], device="cpu"))
+
+
+def test_batched_predictor_on_card(card):
+    """BatchedPredictor with no device runs on the card: three lanes in
+    lockstep over every component type give each lane the scalar
+    predictor's probability at every bit."""
+    model = convert.model_from_reference_header(
+        ref_compile(ALL_COMPONENTS_CFG)[0].header_bytes())
+    lanes = [b"abcabcabcabd", bytes(range(12)), b"zzzzzzzzzzzz"]
+    bp = BatchedPredictor(model)
+    st = bp.init_state(len(lanes))
+    assert st.dev.type == "cuda"
+    scalars = [Predictor(model) for _ in lanes]
+    for j in range(len(lanes[0])):
+        for phase in range(8):
+            p_final, p, st = bp.predict(st, phase)
+            assert p_final.tolist() == [s.predict() for s in scalars]
+            y = [(lane[j] >> (7 - phase)) & 1 for lane in lanes]
+            st = bp.update(st, p, y, phase)
+            for s, b in zip(scalars, y):
+                s.update(b)
+
+
+def test_batched_coders_on_card(card):
+    """BatchedEncoder / BatchedDecoder at -m4 through the CM kernels: the
+    host engine's coded segments, decoded back to the payloads."""
+    ref, _ = ref_make_model("4")
+    model = convert.model_from_reference_header(ref.header_bytes())
+    rng = np.random.default_rng(45)
+    raws = [b"lane %d " % k + rng.integers(97, 105, 3000 + 500 * k,
+                                           dtype=np.uint8).tobytes()
+            for k in range(3)]
+    lanes = [b"\x00" + r for r in raws]
+    rows = np.zeros((3, max(map(len, lanes))), np.uint8)
+    for i, b in enumerate(lanes):
+        rows[i, :len(b)] = np.frombuffer(b, np.uint8)
+    before = (cme.launches, cmd.launches)
+    out, cnt = BatchedEncoder(model).encode(rows, [len(b) for b in lanes])
+    coded = _coded(ref, raws)
+    assert [bytes(out[i, :cnt[i]]) for i in range(3)] == [c[:-6]
+                                                         for c in coded]
+    crow = np.zeros((3, max(map(len, coded))), np.uint8)
+    for i, c in enumerate(coded):
+        crow[i, :len(c)] = np.frombuffer(c, np.uint8)
+    dec, lens = BatchedDecoder(model).decode(crow,
+                                             max(map(len, lanes)) + 8)
+    assert [bytes(dec[i, :lens[i]]) for i in range(3)] == lanes
+    assert (cme.launches, cmd.launches) == (before[0] + 1, before[1] + 1)

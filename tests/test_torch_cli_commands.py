@@ -289,11 +289,17 @@ def test_autotest_host(tree, capsys, switches):
 
 
 def test_command_table_covers_the_slice():
+    """Every command of the reference's CLI, with its plain-path and
+    no-archive grammar."""
+    from zpaqfranz_tpu import cli as ref_cli
     for name in ("i", "info", "versions", "last", "n", "last2", "v",
                  "versum", "f", "fzf", "d", "m", "consolidatebackup", "dir",
                  "dump", "trim", "crop", "password", "p", "paranoid", "w",
                  "c", "compare", "backup", "testbackup", "autotest"):
         assert name in cli.COMMANDS, name
+    assert sorted(cli.COMMANDS) == sorted(ref_cli.COMMANDS)
+    assert cli.PLAIN_PATH_COMMANDS == ref_cli.PLAIN_PATH_COMMANDS
+    assert cli.NO_ARCHIVE_COMMANDS == ref_cli.NO_ARCHIVE_COMMANDS
     assert "autotest" in cli.NO_ARCHIVE_COMMANDS
 
 

@@ -1,4 +1,5 @@
-"""zpaqfranz_tpu_torch command-line interface (the ported subset).
+"""zpaqfranz_tpu_torch command-line interface: every command of the
+reference package's.
 
 Positional grammar matching the reference (man/zpaqfranz.pod:75-131):
 
@@ -7,14 +8,20 @@ Positional grammar matching the reference (man/zpaqfranz.pod:75-131):
 Archive commands: a add, x e extract, l ls list, i info, t test, v verify,
 p w paranoid, c compare, trim, crop, d delete, m merge consolidatebackup,
 backup, testbackup, f find fzf, dir, versions last last2 n, versum, dump,
-password, autotest, b bench. File commands: sum hash.
+password, sync, sfx, mysqldump, autotest, b bench; zfsbackup zfsadd,
+zfsrestore zfsreceive, zfslist, zfspurge. File commands: sum hash, 1on1,
+comparehex, count, s dirsize, collision, isopen, utf, cp, r rsync, z, rd k,
+pause. The platform commands (update upgrade download ads ntfs drive work
+pakka kickstart tui, zfsproxbackup zfsproxrestore) say why they are out of
+scope and exit 2.
 
 Switches: -mN method, -to DIR, -until N|date, -fragment N, -threads N,
 -key PW, -only PAT, -not PAT, -summary, -all, -quick, -golden FILE,
 -stat, -test, -tpu / -notpu, and for ``sum`` the hash name (-sha1
 default, -sha256, -md5, -xxhash64, ...).
-``a``/``backup`` at -m3..-m5, ``x``, ``t``, ``p``, ``c``, ``autotest``,
-``sum -sha1/-sha256`` and the device stages of ``b`` run on the CUDA card
+``a``/``backup``/``zfsbackup``/``mysqldump`` at -m3..-m5, ``x``,
+``zfsrestore``, ``t``, ``p``, ``c``, ``autotest``, ``sum -sha1/-sha256``
+and the device stages of ``b`` run on the CUDA card
 unless ``-notpu`` asks for the host engine (``-tpu`` is accepted and
 changes nothing).
 Exit codes follow the reference contract: 0 ok, 1 warnings, 2 errors.
@@ -932,6 +939,406 @@ def cmd_bench(archive, files, sw) -> int:
     return 0
 
 
+def cmd_1on1(archive, files, sw) -> int:
+    """Byte-compare two files, reporting the first difference offset."""
+    if not files:
+        print("1on1 requires two files", file=sys.stderr)
+        return 2
+    a, b = pathlib.Path(archive), pathlib.Path(files[0])
+    da, db = a.read_bytes(), b.read_bytes()
+    if da == db:
+        print(f"identical ({len(da):,} bytes)")
+        return 0
+    n = min(len(da), len(db))
+    diff = next((i for i in range(n) if da[i] != db[i]), n)
+    print(f"differ at offset {diff:,} "
+          f"(sizes {len(da):,} vs {len(db):,})")
+    return 1
+
+
+def cmd_comparehex(archive, files, sw) -> int:
+    """Side-by-side hex dump of the first differing region of two files."""
+    if not files:
+        print("comparehex requires two files", file=sys.stderr)
+        return 2
+    da = pathlib.Path(archive).read_bytes()
+    db = pathlib.Path(files[0]).read_bytes()
+    n = min(len(da), len(db))
+    diff = next((i for i in range(n) if da[i] != db[i]), None)
+    if diff is None and len(da) == len(db):
+        print(f"identical ({len(da):,} bytes)")
+        return 0
+    start = (diff if diff is not None else n) & ~15
+    for off in range(start, min(start + 64, max(len(da), len(db))), 16):
+        ha = da[off:off + 16].hex(" ")
+        hb = db[off:off + 16].hex(" ")
+        mark = "  " if ha == hb else "<>"
+        print(f"{off:08X} {mark} {ha:<47} | {hb}")
+    return 1
+
+
+def cmd_count(archive, files, sw) -> int:
+    """Count files/dirs/bytes under the given paths (reference count)."""
+    targets = [archive] + list(files) if archive else ["."]
+    nf = nd = nb = 0
+    for t in targets:
+        p = pathlib.Path(t)
+        if p.is_file():
+            nf += 1
+            nb += p.stat().st_size
+            continue
+        for sub in p.rglob("*"):
+            if sub.is_dir():
+                nd += 1
+            elif sub.is_file():
+                nf += 1
+                nb += sub.stat().st_size
+    print(f"{nf:,} files, {nd:,} dirs, {nb:,} bytes")
+    return 0
+
+
+def cmd_dirsize(archive, files, sw) -> int:
+    """Per-directory recursive sizes (reference s / dirsize)."""
+    targets = [archive] + list(files) if archive else ["."]
+    for t in sorted(targets):
+        p = pathlib.Path(t)
+        if not p.is_dir():
+            if p.is_file():
+                print(f"{p.stat().st_size:>14,}  {t}")
+            continue
+        total = cnt = 0
+        for sub in p.rglob("*"):
+            if sub.is_file():
+                total += sub.stat().st_size
+                cnt += 1
+        print(f"{total:>14,}  {cnt:>7} files  {t}")
+    return 0
+
+
+def cmd_collision(archive, files, sw) -> int:
+    """Find same-content file groups under the given paths by full hash
+    (the reference collision hunts weak-hash collisions; contents are
+    compared by SHA-256 so reported groups are true duplicates)."""
+    from . import native
+    groups: Dict[bytes, List[str]] = {}
+    targets = [archive] + list(files) if archive else ["."]
+    for t in targets:
+        p = pathlib.Path(t)
+        it = [p] if p.is_file() else sorted(p.rglob("*"))
+        for sub in it:
+            if sub.is_file():
+                groups.setdefault(native.sha256(sub.read_bytes()),
+                                  []).append(str(sub))
+    dups = {k: v for k, v in groups.items() if len(v) > 1}
+    for k, v in sorted(dups.items()):
+        print(f"{k.hex()[:16]}:")
+        for name in v:
+            print(f"  {name}")
+    print(f"{len(dups)} duplicate groups of {len(groups)} distinct contents")
+    return 0
+
+
+def cmd_isopen(archive, files, sw) -> int:
+    """Report whether the file can be opened exclusively (reference
+    isopen; on POSIX approximated by open-for-append probing)."""
+    p = pathlib.Path(archive)
+    if not p.exists():
+        print(f"{archive}: does not exist")
+        return 2
+    try:
+        with open(p, "ab"):
+            pass
+        print(f"{archive}: not locked")
+        return 0
+    except OSError as e:
+        print(f"{archive}: locked ({e})")
+        return 1
+
+
+def cmd_utf(archive, files, sw) -> int:
+    """List files whose names contain non-ASCII or control characters
+    (reference utf); -fix renames them to sanitized ASCII."""
+    targets = [archive] + list(files) if archive else ["."]
+    fix = "fix" in sw or "force" in sw
+    shown = 0
+    for t in targets:
+        p = pathlib.Path(t)
+        it = [p] if p.is_file() else sorted(p.rglob("*"))
+        for sub in it:
+            name = sub.name
+            if all(32 <= ord(ch) < 127 for ch in name):
+                continue
+            shown += 1
+            safe = "".join(ch if 32 <= ord(ch) < 127 else "_"
+                           for ch in name)
+            print(f"{sub}  ->  {safe}" if fix else f"{sub}")
+            if fix:
+                sub.rename(sub.with_name(safe))
+    print(f"{shown} suspect names{' fixed' if fix else ''}")
+    return 0
+
+
+def cmd_cp(archive, files, sw) -> int:
+    """Resumable file copy (reference cp): continues a partial copy by
+    appending from the destination's current size after verifying the
+    overlap."""
+    if not files:
+        print("cp requires a destination", file=sys.stderr)
+        return 2
+    src, dst = pathlib.Path(archive), pathlib.Path(files[0])
+    if dst.is_dir():
+        dst = dst / src.name
+    data = src.read_bytes()
+    done = dst.stat().st_size if dst.exists() else 0
+    if done:
+        if dst.read_bytes() != data[:done]:
+            print("destination prefix differs; use a fresh name",
+                  file=sys.stderr)
+            return 2
+        if done >= len(data):
+            print(f"already complete ({done:,} bytes)")
+            return 0
+    with open(dst, "ab") as f:
+        f.write(data[done:])
+    print(f"copied {len(data) - done:,} bytes "
+          f"({'resumed at ' + format(done, ',') if done else 'full'})")
+    return 0
+
+
+def cmd_robocopy(archive, files, sw) -> int:
+    """Mirror source dir into destination dirs (reference r): copy new/
+    changed files; with -kill also delete extraneous destination files."""
+    import shutil
+    if not files:
+        print("r requires source and destination dirs", file=sys.stderr)
+        return 2
+    src = pathlib.Path(archive)
+    copied = deleted = 0
+    for dest in files:
+        dst = pathlib.Path(dest)
+        dst.mkdir(parents=True, exist_ok=True)
+        srcfiles = {p.relative_to(src): p for p in src.rglob("*")
+                    if p.is_file()}
+        for rel, sp in sorted(srcfiles.items()):
+            dp = dst / rel
+            if (not dp.exists() or dp.stat().st_size != sp.stat().st_size
+                    or dp.stat().st_mtime < sp.stat().st_mtime):
+                dp.parent.mkdir(parents=True, exist_ok=True)
+                shutil.copy2(sp, dp)
+                copied += 1
+        if "kill" in sw:
+            for dp in sorted(dst.rglob("*"), reverse=True):
+                rel = dp.relative_to(dst)
+                if dp.is_file() and rel not in srcfiles:
+                    dp.unlink()
+                    deleted += 1
+                elif dp.is_dir() and not any(dp.iterdir()):
+                    dp.rmdir()
+    print(f"{copied} copied, {deleted} deleted")
+    return 0
+
+
+def cmd_zero(archive, files, sw) -> int:
+    """Delete empty directories under the given path (reference z)."""
+    removed = 0
+    root = pathlib.Path(archive)
+    if "force" not in sw and "kill" not in sw:
+        for d in sorted(root.rglob("*")):
+            if d.is_dir() and not any(d.iterdir()):
+                print(f"would remove {d}")
+                removed += 1
+        print(f"{removed} empty dirs (add -kill to remove)")
+        return 0
+    for d in sorted(root.rglob("*"), reverse=True):
+        if d.is_dir() and not any(d.iterdir()):
+            d.rmdir()
+            removed += 1
+    print(f"{removed} empty dirs removed")
+    return 0
+
+
+def cmd_rd(archive, files, sw) -> int:
+    """Remove a directory tree (reference rd). Requires -kill."""
+    import shutil
+    root = pathlib.Path(archive)
+    if "kill" not in sw:
+        n = sum(1 for _ in root.rglob("*")) if root.exists() else 0
+        print(f"would remove {root} ({n} entries); add -kill to confirm")
+        return 0
+    if root.exists():
+        shutil.rmtree(root)
+        print(f"removed {root}")
+    return 0
+
+
+def cmd_pause(archive, files, sw) -> int:
+    """Wait for Enter (reference pause; useful at end of scripts)."""
+    try:
+        input("Press Enter to continue...")
+    except EOFError:
+        pass
+    return 0
+
+
+def cmd_sync(archive, files, sw) -> int:
+    """Report what an 'a' run would change: new/changed/deleted files
+    vs the archive index (reference sync, CHANGELOG.md:65-71)."""
+    from .jidac.add import scan_files
+    data, jd = _load_index(archive, sw)
+    ext = scan_files(files or ["."])
+    new = changed = deleted = 0
+    for name, (fdate, fsize, fattr) in sorted(ext.items()):
+        d = jd.dt.get(name)
+        if d is None or not d.date:
+            new += 1
+            print(f"+ {name}")
+        elif d.date != fdate or d.size != fsize:
+            changed += 1
+            print(f"# {name}")
+    for name, d in sorted(jd.dt.items()):
+        if d.date and name not in ext:
+            deleted += 1
+            print(f"- {name}")
+    print(f"{new} new, {changed} changed, {deleted} deleted")
+    return 0 if not (new or changed or deleted) else 1
+
+
+def cmd_zfsbackup(archive, files, sw) -> int:
+    """Snapshot-consistent dataset backup: zfs snapshot + (incremental)
+    send stream appended to the archive (reference zfs family,
+    man/zpaqfranz.pod:115-122; CHANGELOG.md:962-982)."""
+    from .jidac.zfs import zfs_backup
+    if not files:
+        print("zfsbackup archive dataset [-full] [-key PW]", file=sys.stderr)
+        return 2
+    snap, nbytes = zfs_backup(archive, files[0], key=_key(sw),
+                              method=_method(sw), full="full" in sw,
+                              use_device=_use_device(sw))
+    print(f"snapshot {snap}: {_fmt_size(nbytes)} stream bytes archived")
+    return 0
+
+
+def cmd_zfsrestore(archive, files, sw) -> int:
+    from .jidac.zfs import zfs_restore
+    if not files:
+        print("zfsrestore archive dataset [-to DATASET] [-key PW]",
+              file=sys.stderr)
+        return 2
+    n = zfs_restore(archive, files[0], to=sw.get("to", [None])[0],
+                    key=_key(sw), use_device=_use_device(sw))
+    print(f"{n} streams received")
+    return 0
+
+
+def cmd_zfslist(archive, files, sw) -> int:
+    """List this tool's snapshots on a dataset (archive arg is the
+    dataset, matching the reference's positional grammar)."""
+    from .jidac.zfs import our_snapshots
+    ds = archive if archive else (files[0] if files else None)
+    if ds is None:
+        print("zfslist dataset", file=sys.stderr)
+        return 2
+    ds = ds.removesuffix(".zpaq")
+    for s_ in our_snapshots(ds):
+        print(s_)
+    return 0
+
+
+def cmd_zfspurge(archive, files, sw) -> int:
+    from .jidac.zfs import zfs_purge
+    ds = archive if archive else (files[0] if files else None)
+    if ds is None:
+        print("zfspurge dataset [-keep N]", file=sys.stderr)
+        return 2
+    ds = ds.removesuffix(".zpaq")
+    victims = zfs_purge(ds, keep=int(sw.get("keep", ["0"])[0]))
+    print(f"destroyed {len(victims)} snapshots")
+    return 0
+
+
+def cmd_zfsadd(archive, files, sw) -> int:
+    """zfsadd = zfsbackup alias (reference keeps both spellings)."""
+    return cmd_zfsbackup(archive, files, sw)
+
+
+def cmd_zfsreceive(archive, files, sw) -> int:
+    return cmd_zfsrestore(archive, files, sw)
+
+
+def _zfs_prox_stub(cmdname: str):
+    def fn(archive, files, sw) -> int:
+        print(f"{cmdname}: proxmox VM orchestration is out of scope "
+              "(reference zfsproxbackup/zfsproxrestore wrap the plain zfs "
+              "commands with Proxmox VM metadata; use zfsbackup/zfsrestore "
+              "on the VM datasets directly)", file=sys.stderr)
+        return 2
+    return fn
+
+
+def cmd_sfx(archive, files, sw) -> int:
+    """Build a self-extracting POSIX executable: native engine + mini-jidac
+    stub compiled on demand, archive appended with a magic trailer (the
+    ELF equivalent of the reference's PE stub mechanism,
+    ZSFX/zsfx.cpp:2494-2612). Encrypted archives are embedded decrypted
+    (the stub has no scrypt); pass -key to decrypt first."""
+    from .jidac.sfx import build_sfx
+    src, _jd = _load_index(archive, sw)
+    out = files[0] if files else archive.removesuffix(".zpaq") + ".sfx"
+    n = build_sfx(src.bytes(), out)
+    print(f"{out}: {_fmt_size(n)} bytes (self-extracting, run it to "
+          f"unpack into ./ or pass a target dir)")
+    return 0
+
+
+def cmd_mysqldump(archive, files, sw) -> int:
+    """Dump a MySQL/MariaDB database (mysqldump subprocess) and append the
+    dump to the archive (reference mysqldump command; the dedup layer makes
+    daily dumps nearly free). ZPAQ_MYSQLDUMP_CMD overrides the binary."""
+    import os
+    import shutil as _sh
+    import subprocess
+    import tempfile
+    cmd = os.environ.get("ZPAQ_MYSQLDUMP_CMD") or _sh.which("mysqldump")
+    if not cmd:
+        print("mysqldump: binary not found (set ZPAQ_MYSQLDUMP_CMD)",
+              file=sys.stderr)
+        return 2
+    db = files[0] if files else "--all-databases"
+    from .jidac.add import add
+    with tempfile.TemporaryDirectory() as td:
+        name = f"mysqldump/{db.strip('-')}.sql"
+        out = pathlib.Path(td) / name
+        out.parent.mkdir(parents=True)
+        with open(out, "wb") as f:
+            r = subprocess.run([cmd, db] + files[1:], stdout=f,
+                               stderr=subprocess.PIPE)
+        if r.returncode != 0:
+            print(f"mysqldump failed: {r.stderr.decode()[-500:]}",
+                  file=sys.stderr)
+            return 2
+        cwd = os.getcwd()
+        os.chdir(td)
+        try:
+            arc = archive if os.path.isabs(archive) else str(
+                pathlib.Path(cwd) / archive)
+            nfiles, _nfrags, nbytes = add(arc, [name], method=_method(sw),
+                                          key=_key(sw),
+                                          use_device=_use_device(sw))
+        finally:
+            os.chdir(cwd)
+        dumped = out.stat().st_size
+    print(f"{name}: {_fmt_size(dumped)} dumped, "
+          f"{_fmt_size(nbytes)} archived")
+    return 0
+
+
+def _platform_stub(cmdname: str, why: str):
+    def fn(archive, files, sw) -> int:
+        print(f"{cmdname}: {why}", file=sys.stderr)
+        return 2
+    return fn
+
+
 COMMANDS = {
     "a": cmd_add, "add": cmd_add,
     "x": cmd_extract, "e": cmd_extract, "extract": cmd_extract,
@@ -957,10 +1364,61 @@ COMMANDS = {
     "dir": cmd_dir,
     "dump": cmd_dump,
     "password": cmd_password,
+    "1on1": cmd_1on1,
+    "comparehex": cmd_comparehex,
+    "count": cmd_count,
+    "s": cmd_dirsize, "dirsize": cmd_dirsize,
+    "collision": cmd_collision,
+    "isopen": cmd_isopen,
+    "utf": cmd_utf,
+    "cp": cmd_cp,
+    "r": cmd_robocopy, "rsync": cmd_robocopy,
+    "z": cmd_zero,
+    "rd": cmd_rd, "k": cmd_rd,
+    "pause": cmd_pause,
+    "sync": cmd_sync,
+    "sfx": cmd_sfx,
+    "mysqldump": cmd_mysqldump,
+    # platform and network services are not ported, as in the reference
+    "update": _platform_stub(
+        "update", "network self-update is out of scope (SURVEY.md #46); "
+        "update the package with git/pip instead"),
+    "upgrade": _platform_stub(
+        "upgrade", "network self-update is out of scope (SURVEY.md #46)"),
+    "download": _platform_stub(
+        "download", "network fetch is out of scope (SURVEY.md #46)"),
+    "ads": _platform_stub(
+        "ads", "NTFS alternate data streams are Windows-only "
+        "(SURVEY.md #44)"),
+    "ntfs": _platform_stub(
+        "ntfs", "NTFS/MFT disk imaging is Windows-only (SURVEY.md #44); "
+        "image files archive as ordinary files"),
+    "drive": _platform_stub(
+        "drive", "Windows drive enumeration is out of scope (SURVEY.md "
+        "#44)"),
+    "work": _platform_stub(
+        "work", "power/turbo management is host-platform tooling; use the "
+        "OS governor directly"),
+    "pakka": _platform_stub(
+        "pakka", "the PAKKA GUI companion is Windows-only"),
+    "kickstart": _platform_stub(
+        "kickstart", "kickstart bootstraps a Windows install; out of "
+        "scope"),
+    "tui": _platform_stub(
+        "tui", "interactive browser not implemented; use l/find/dir"),
+    "zfsadd": cmd_zfsadd, "zfsbackup": cmd_zfsbackup,
+    "zfslist": cmd_zfslist, "zfspurge": cmd_zfspurge,
+    "zfsreceive": cmd_zfsreceive,
+    "zfsrestore": cmd_zfsrestore,
+    "zfsproxbackup": _zfs_prox_stub("zfsproxbackup"),
+    "zfsproxrestore": _zfs_prox_stub("zfsproxrestore"),
 }
 
 # commands whose first positional is a plain file/dir path, not an archive
-PLAIN_PATH_COMMANDS = {"sum", "hash"}
+PLAIN_PATH_COMMANDS = {
+    "sum", "hash", "1on1", "comparehex", "count", "s", "dirsize",
+    "collision", "utf", "cp", "r", "rsync", "z", "rd", "k", "pause",
+}
 
 # commands that need no positional at all (reference: `zpaqfranz autotest`
 # and `zpaqfranz b` run bare, man/zpaqfranz.pod:75-78)

@@ -38,7 +38,8 @@ BUILD_DIR = PKG / "build"
 #: kernel name -> source file under csrc/
 SOURCES = {"sha1_lanes": "sha1_lanes.cu", "sha256_lanes": "sha256_lanes.cu",
            "cm_decode": "cm_decode.cu", "cm_encode": "cm_encode.cu",
-           "mb_access": "mb_access.cu", "mb_vmem_probe": "mb_vmem_probe.cu"}
+           "mb_access": "mb_access.cu", "mb_vmem_probe": "mb_vmem_probe.cu",
+           "crc32_lanes": "crc32_lanes.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -14,6 +14,7 @@ the reference, so a device add and a host add write the same archive bytes.
 
 from __future__ import annotations
 
+import bisect
 import math
 import sys
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -104,16 +105,22 @@ def decode_jidac_blocks(data, jd, blocks, device: torch.device
     """Decode jidac d blocks -> {block.offset: concatenated fragment bytes}.
 
     ``data``: archive bytes or a streaming ArchiveSource; each block's
-    bytes are fetched as one bounded range (bsize from the h block).
+    bytes are fetched as one bounded range: ``bsize`` from the h block, or
+    for a streaming-format block (``bsize`` 0, no stored size) up to the
+    next block of ``jd`` or ``blocks`` in the archive, or to its end.
     Modeled blocks run as lanes of the CM decode kernel on ``device``,
     grouped by model header; store blocks decode in the host engine."""
     from ..jidac.archive_io import as_source
     src = as_source(data)
+    starts = sorted({b.offset for b in jd.block} | {b.offset for b in blocks})
     groups: Dict[bytes, List] = {}
     host_blocks = []
     metas = {}
     for blk in blocks:
-        n = blk.bsize if blk.bsize else max(0, src.size() - blk.offset)
+        n = blk.bsize
+        if not n:
+            k = bisect.bisect_right(starts, blk.offset)
+            n = (starts[k] if k < len(starts) else src.size()) - blk.offset
         model, _, payload = parse_block_payload(src.read_range(blk.offset, n),
                                                 0)
         metas[blk.offset] = (model, payload)
