@@ -23,9 +23,11 @@ alone; the CM kernels also against the native host engine, with each
 model's placement printed: G threads per lane, lanes per block, shared
 bytes; then one lane per level for its rate and a profiled breakdown of a
 bit, with each HCOMP step, beside the interpreter design's), the CRC-32
-lane kernel (one 1 MiB lane alone for its step, 1,024 lanes of 1-4 KiB and
-the fragment shape against its plain version and ``native.crc32``, timed
-beside its bound), the seven
+lane kernel (one aligned segment alone, profiled for its step; one 1 MiB
+lane alone, 1,024 lanes of 1-4 KiB and the fragment shape against its
+plain version and ``native.crc32``, timed beside its bound, its chain
+floor and the one-thread design's times; the fragment shape also on zero
+bytes and at several segment sizes), the seven
 table-access
 microbenchmark kernels (``experiments/mb_access.py`` A-E,
 ``experiments/mb_vmem_probe.py`` P1, P2) at every shape their scripts
@@ -168,18 +170,15 @@ PROFILE_LANE = 1 << 20
 # hash_batched.crc32_lanes on the fragment shape
 CRC_CUT_LANES = 1024
 CRC_CUT_MIN, CRC_CUT_MAX = 1 << 10, 4 << 10
-# 32-bit integer instructions of one CRC-32 byte step, counted from
-# csrc/crc32_lanes.cu: the byte's extract, its XOR into the CRC, the table
-# index and address, the shared-memory load, the CRC's shift and the XOR
-CRC_OPS_PER_BYTE = 6
-# Cycles of one CRC-32 byte step's dependent chain, from the same source:
-# the byte's XOR into the CRC (one LOP3, 4 cycles), the table's address
-# (one LEA, 4), the shared-memory load (~30, the dependent shared-memory
-# load latency that microbenchmarks of Hopper report) and the XOR with the
-# CRC shifted down (one LOP3, 4; the shift is off the path). At the boost
-# clock, times the longest lane's bytes, they make the chain floor: no
-# launch at one thread a lane can take that lane faster.
-CRC_CHAIN_CYCLES = 4 + 4 + 30 + 4
+# Operations of the CRC-32 of one input byte, whatever computes it: its
+# extract, its table lookup and its XOR into the register
+CRC_OPS_PER_BYTE = 3
+# kernel times of the earlier design, one thread a lane (PERF.md, smoke):
+# the fragment shape, one 1 MiB lane alone and the cut shape
+ONE_THREAD_CRC_MS = {"fragments": 10.151, "one_lane": 61.441, "cut": 0.2692}
+# segment sizes the fragment shape is also timed at (the kernel's own is
+# hash_batched.CRC_SEG)
+CRC_SEGS = (1 << 10, 2 << 10, 4 << 10, 8 << 10, 16 << 10)
 # the device BWT: one block of -m3's default block size (16 MiB), text
 BWT_BYTES = 16 << 20
 # the batched coders at -m4 (16 MiB-block widths): 4 lanes of 16 KiB
@@ -592,25 +591,55 @@ def crc_words(torch, t) -> list:
 
 def check_crc(torch, np, dev, seed: int, lens, frag) -> dict:
     """Hold the CRC-32 lane kernel bit for bit against its plain version
-    (``hash_batched.crc32_plain``, on the card) and ``native.crc32``: one
-    lane of 1 MiB alone, timed (its byte step beside the chain's,
-    ``CRC_CHAIN_CYCLES``); a cut shape of ``CRC_CUT_LANES`` lanes; the
-    fragment shape, timed with CUDA events beside its bound: bytes,
-    operations and the chain floor (the longest lane's bytes at
-    ``CRC_CHAIN_CYCLES`` a byte). Returns the JSON entry and the
-    fragments' CRCs."""
+    (``hash_batched.crc32_plain``, on the card) and ``native.crc32``, each
+    shape timed beside the one-thread design's (``ONE_THREAD_CRC_MS``):
+    one aligned segment alone, profiled (the cycles of one warp's row of
+    ``hash_batched.CRC_ROW`` bytes: the chain's step); one lane of 1 MiB
+    alone (with its combine's profiled cycles); a cut shape of
+    ``CRC_CUT_LANES`` lanes; the fragment shape, timed beside its bound
+    (bytes; operations at ``CRC_OPS_PER_BYTE``) and its chain floor (the
+    longest segment's rows at the step alone, plus the longest lane's
+    combine alone), split into the plan and the two kernels, again on zero
+    bytes (every table lookup the same word: no bank conflicts, whatever
+    the tables' layout) and at each of ``CRC_SEGS``, with segment 0's
+    cycles a row under load. Returns the JSON entry and the fragments'
+    CRCs."""
     from zpaqfranz_tpu_torch import native
-    from zpaqfranz_tpu_torch.ops import build, hash_batched as hb, sha1
+    from zpaqfranz_tpu_torch.ops import hash_batched as hb, sha1
 
     rng = np.random.default_rng(seed)
+    seg = hb.CRC_SEG
 
-    def launch_ms(data, off, length) -> float:
-        """The kernel alone: CUDA events around launches with the checks
-        done and the output allocated once."""
-        out = torch.empty(off.shape[0], dtype=torch.uint32, device=dev)
-        return cuda_ms(torch, lambda: build.call(
-            "crc32_lanes", "crc32_lanes_launch", dev, data, off, length, out,
-            off.shape[0], data.numel()), 5)
+    def launch_ms(data, off, length, s=seg) -> float:
+        """The kernel alone: CUDA events around launches with the plan
+        built once."""
+        return cuda_ms(torch, hb.CrcLaunch(data, off, length, s).run, 5)
+
+    def device_ms(launch) -> tuple:
+        """The two kernels' device times (``torch.profiler``): where the
+        kernels take microseconds, CUDA events around the calls time the
+        host's launches instead."""
+        return tuple(kernel_ms(torch, launch.run, (), k)
+                     for k in ("crc32_segments", "crc32_combine"))
+
+    def sweep(what: str, data, off, length, want) -> None:
+        """The kernels' device time at each of ``CRC_SEGS``, the CRCs
+        equal to ``want``."""
+        times = {}
+        for s in CRC_SEGS:
+            launch = hb.CrcLaunch(data, off, length, s)
+            times[s] = sum(device_ms(launch))
+            check(crc_words(torch, launch.out) == want, f"crc32 kernel "
+                  f"differs from native.crc32 ({what}, segments of {s})")
+        log(f"crc32_lanes: {what}, the kernels' device time at each "
+            f"segment size: " + ", ".join(f"{s} bytes {t:.4f} ms"
+                                          for s, t in times.items()))
+
+    def profiled(data, off, length) -> list:
+        prof = torch.zeros(len(hb.CRC_PROFILE), dtype=torch.int64,
+                           device=dev)
+        hb.CrcLaunch(data, off, length, profile=prof).run()
+        return prof.tolist()
 
     def against_plain(data, off, length, what: str) -> tuple:
         got = hb.crc32_flat(data, off, length)
@@ -625,20 +654,40 @@ def check_crc(torch, np, dev, seed: int, lens, frag) -> dict:
               f"({what})")
         return got, err, plain_ms
 
+    # one aligned segment alone: the cycles of one row, the chain's step
+    buf = torch.from_numpy(np.frombuffer(bytearray(rng.bytes(3 * seg)),
+                                         np.uint8)).to(dev)
+    start = (-buf.data_ptr()) % seg
+    aligned = (buf, torch.tensor([start], device=dev),
+               torch.tensor([seg], device=dev))
+    cycles, pieces, _, _ = profiled(*aligned)
+    check(pieces == seg // 16, f"the aligned segment ran {pieces} pieces")
+    row_cyc = cycles / (seg // hb.CRC_ROW)
+    check(crc_words(torch, hb.crc32_flat(*aligned)) == [native.crc32(
+        buf[start:start + seg].cpu().numpy().tobytes())],
+        "crc32 kernel differs from native.crc32 (one segment)")
+    log(f"crc32_lanes one aligned segment of {seg} bytes alone, profiled: "
+        f"{cycles} cycles over {seg // hb.CRC_ROW} rows of {hb.CRC_ROW} "
+        f"bytes = {row_cyc:.1f} cycles a row ({cycles / seg:.2f} a byte, "
+        f"one warp) at {SM_CLOCK_HZ / 1e9:.2f} GHz")
+
     one = rng.bytes(PROFILE_LANE)
     data, off, length = sha1.pack_messages([one], dev)
     check(crc_words(torch, hb.crc32_flat(data, off, length))
           == [native.crc32(one)], "crc32 kernel differs from native.crc32 "
           "(one lane)")
-    one_ms = launch_ms(data, off, length)
-    step_ns = one_ms * 1e6 / PROFILE_LANE
-    chain_ns = CRC_CHAIN_CYCLES / SM_CLOCK_HZ * 1e9
-    log(f"crc32_lanes one lane of {PROFILE_LANE} bytes alone: kernel "
-        f"{one_ms:.3f} ms, {step_ns:.2f} ns a byte step = "
-        f"{step_ns * SM_CLOCK_HZ / 1e9:.0f} cycles at "
-        f"{SM_CLOCK_HZ / 1e9:.2f} GHz, {step_ns / chain_ns:.2f}x the chain's "
-        f"{CRC_CHAIN_CYCLES} cycles ({chain_ns:.2f} ns: LOP3, LEA, a "
-        f"shared-memory load, LOP3)")
+    launch = hb.CrcLaunch(data, off, length)
+    one_ms = cuda_ms(torch, launch.run, 5)
+    dev_ms = device_ms(launch)
+    _, _, comb, segs = profiled(data, off, length)
+    log(f"crc32_lanes one lane of {PROFILE_LANE} bytes alone: {segs} "
+        f"segments of {seg} bytes, a group of {launch.group} threads "
+        f"combines them in {comb} cycles; kernel {one_ms:.4f} ms (CUDA "
+        f"events), on the device segments {dev_ms[0]:.4f} + combine "
+        f"{dev_ms[1]:.4f} ms ({PROFILE_LANE / sum(dev_ms) / 1e6:.2f} GB/s; "
+        f"one thread a lane: {ONE_THREAD_CRC_MS['one_lane']} ms, "
+        f"{ONE_THREAD_CRC_MS['one_lane'] / sum(dev_ms):.0f}x)")
+    sweep("one lane", data, off, length, [native.crc32(one)])
 
     cut = np.exp(rng.uniform(np.log(CRC_CUT_MIN), np.log(CRC_CUT_MAX),
                              CRC_CUT_LANES)).astype(np.int64)
@@ -647,10 +696,18 @@ def check_crc(torch, np, dev, seed: int, lens, frag) -> dict:
     got, _, cut_plain_ms = against_plain(data, off, length, "cut shape")
     check(crc_words(torch, got) == [native.crc32(m) for m in msgs],
           "crc32 kernel differs from native.crc32 (cut shape)")
+    cut_ms = launch_ms(data, off, length)
+    dev_ms = device_ms(hb.CrcLaunch(data, off, length))
+    call_ms = min(wall_ms(torch, lambda: hb.crc32_flat(data, off, length))
+                  for _ in range(3))
     log(f"crc32_lanes: {CRC_CUT_LANES} lanes of log-uniform {CRC_CUT_MIN}-"
-        f"{CRC_CUT_MAX} bytes: kernel {launch_ms(data, off, length):.4f} ms, "
-        f"plain {cut_plain_ms:.1f} ms; equal to the plain version and "
+        f"{CRC_CUT_MAX} bytes: kernel {cut_ms:.4f} ms (CUDA events), on "
+        f"the device segments {dev_ms[0]:.4f} + combine {dev_ms[1]:.4f} ms "
+        f"(one thread a lane: {ONE_THREAD_CRC_MS['cut']} ms), the call "
+        f"with its plan and host sync {call_ms:.3f} ms, plain "
+        f"{cut_plain_ms:.1f} ms; equal to the plain version and "
         f"native.crc32")
+    sweep("cut shape", data, off, length, crc_words(torch, got))
 
     ends = np.cumsum(lens)
     t0 = time.perf_counter()
@@ -662,18 +719,42 @@ def check_crc(torch, np, dev, seed: int, lens, frag) -> dict:
     got, err, plain_ms = against_plain(data, off, length, "fragments")
     check(crc_words(torch, got) == want,
           "crc32 kernel differs from native.crc32 (fragments)")
-    ms = launch_ms(data, off, length)
+    plan_ms = min(wall_ms(torch, lambda: hb.CrcLaunch(data, off, length))
+                  for _ in range(3))
+    launch = hb.CrcLaunch(data, off, length)
+    ms = cuda_ms(torch, launch.run, 5)
+    seg_ms, comb_ms = device_ms(launch)
+    cycles, pieces, _, _ = profiled(data, off, length)
+    longest = int(np.argmax(lens))
+    _, _, comb, segs = profiled(data, off[longest:longest + 1],
+                                length[longest:longest + 1])
+    zeros = torch.zeros_like(data)
+    check(crc_words(torch, hb.crc32_flat(zeros, off, length)) == [
+        native.crc32(bytes(int(n))) for n in lens],
+        "crc32 kernel differs from native.crc32 (fragments of zeros)")
+    zero_ms = launch_ms(zeros, off, length)
+    del zeros
     nbytes = int(lens.sum())
+    chain_ms = ((seg // hb.CRC_ROW) * row_cyc + comb) / SM_CLOCK_HZ * 1e3
     b = {"bytes": (nbytes + 20 * len(lens)) / HBM_BYTES_PER_S * 1e3,
-         "operations": nbytes * CRC_OPS_PER_BYTE / INT32_OPS_PER_S * 1e3,
-         "chain": int(lens.max()) * chain_ns / 1e6}
+         "operations": nbytes * CRC_OPS_PER_BYTE / INT32_OPS_PER_S * 1e3}
     b_ms, b_by = bound(nbytes + 20 * len(lens), nbytes * CRC_OPS_PER_BYTE)
-    log(f"crc32_lanes: fragments, {FRAG_LANES} lanes, {nbytes} bytes: "
-        f"kernel {ms:.3f} ms ({nbytes / ms / 1e6:.2f} GB/s, "
-        f"{ms / b['chain']:.2f}x the chain floor), {bound_text(b)}; plain "
-        f"{plain_ms:.1f} ms; native.crc32 on the "
-        f"host {native_s * 1e3:.1f} ms; equal to the plain version and "
-        f"native.crc32")
+    log(f"crc32_lanes: fragments, {FRAG_LANES} lanes, {nbytes} bytes, "
+        f"{launch.segments} segments of {seg} bytes, groups of "
+        f"{launch.group}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.2f} GB/s, "
+        f"{b_ms / ms:.1%} of the {bound_text(b)}; one thread a lane: "
+        f"{ONE_THREAD_CRC_MS['fragments']} ms, "
+        f"{ONE_THREAD_CRC_MS['fragments'] / ms:.1f}x); profiled: segments "
+        f"{seg_ms:.4f} ms + combine {comb_ms:.4f} ms; the plan (torch ops "
+        f"and the host sync) {plan_ms:.3f} ms; chain floor {chain_ms:.4f} "
+        f"ms ({seg // hb.CRC_ROW} rows at {row_cyc:.1f} cycles + the "
+        f"longest lane's combine, {segs} segments, {comb} cycles); segment 0 "
+        f"under load {cycles * hb.CRC_ROW / max(16 * pieces, 1):.1f} cycles "
+        f"a row; on zero bytes (every lookup one word) {zero_ms:.4f} ms; "
+        f"plain {plain_ms:.1f} ms; "
+        f"native.crc32 on the host {native_s * 1e3:.1f} ms; equal to the "
+        f"plain version and native.crc32")
+    sweep("fragments", data, off, length, want)
     del data
     return {"name": "crc32_lanes", "route": "cuda",
             "source": "zpaqfranz_tpu_torch/csrc/crc32_lanes.cu",

@@ -736,16 +736,18 @@ def test_paranoid_and_compare_on_card(card, tmp_path, monkeypatch, capsys):
         assert sha1.launches == before[1] + 1
 
 
-def _crc_spans(data, spans):
-    """The kernel's CRCs of ``data[o:o + n]`` for ``spans`` against its
-    plain version and native.crc32; one launch."""
+def _crc_spans(data, spans, seg=hb.CRC_SEG):
+    """The kernel's CRCs of ``data[o:o + n]`` for ``spans`` over segments
+    of ``seg`` bytes against its plain version and native.crc32; one
+    launch."""
     host = data.cpu().numpy().tobytes()
     off = torch.tensor([o for o, _ in spans], dtype=torch.int64,
                        device=data.device)
     ln = torch.tensor([n for _, n in spans], dtype=torch.int64,
                       device=data.device)
     before = hb.launches
-    got = hb.crc32_flat(data, off, ln)
+    got = (hb.crc32_flat(data, off, ln) if seg == hb.CRC_SEG
+           else hb.CrcLaunch(data, off, ln, seg).run())
     torch.cuda.synchronize()
     assert hb.launches == before + 1
     assert torch.equal(got.view(torch.int32),
@@ -774,14 +776,90 @@ def test_crc32_kernel_reads_to_the_last_byte_of_data(card, start):
 
 @pytest.mark.parametrize("count", [1, 63, 64, 65, 8449, 150_000])
 def test_crc32_kernel_at_lane_counts(card, count):
-    # one thread block (64 lanes), a block +- 1, one block per SM + 1, and
-    # many waves
+    # one lane, lanes about a warp, 8449 lanes (one thread a lane: a block
+    # per SM + 1) and many waves
     rng = np.random.default_rng(count)
     data = torch.from_numpy(rng.integers(0, 256, 20_000, dtype=np.uint8)).to(
         card)
     lens = rng.integers(0, 300, count)
     offs = rng.integers(0, 20_000 - 300, count)
     _crc_spans(data, list(zip(offs.tolist(), lens.tolist())))
+
+
+@pytest.mark.parametrize("seg", [64, 1024, hb.CRC_SEG, 65536])
+def test_crc32_kernel_at_segment_edges(card, seg):
+    # lanes of seg - 1, seg and seg + 1 bytes (and 2 seg + 15) from every
+    # offset 0..15 of a segment boundary and of the buffer
+    rng = np.random.default_rng(seg)
+    size = 3 * seg + 64
+    buf = torch.from_numpy(rng.integers(0, 256, size + seg, dtype=np.uint8)
+                           ).to(card)
+    data = buf[(-buf.data_ptr()) % seg:][:size]     # starts on a boundary
+    lens = (seg - 1, seg, seg + 1, 2 * seg + 15)
+    _crc_spans(data, [(b + o, n) for b in (0, seg) for o in range(16)
+                      for n in lens] + [(size - n, n) for n in lens], seg)
+
+
+@pytest.mark.parametrize("mib", [1, 64])
+def test_crc32_kernel_on_one_long_lane_alone(card, mib):
+    """One lane of 1 MiB or 64 MiB alone (256 or 16,384 segments combined
+    by a warp), at a start off a segment boundary, against native.crc32
+    and zlib; the 1 MiB lane also against the plain segmented path (its
+    per-byte loop over 64 KiB segments). crc32_plain's per-byte loop would
+    take ~10^6-10^8 launches here: the other tests hold the kernel against
+    it."""
+    import zlib
+    n = mib << 20
+    rng = np.random.default_rng(mib)
+    host = rng.integers(0, 256, n + 7, dtype=np.uint8)
+    data = torch.from_numpy(host).to(card)
+    off = torch.tensor([7], dtype=torch.int64, device=card)
+    ln = torch.tensor([n], dtype=torch.int64, device=card)
+    got = int(hb.crc32_flat(data, off, ln).view(torch.int32)[0]) & 0xFFFFFFFF
+    msg = host[7:].tobytes()
+    assert got == ref_native.crc32(msg) == zlib.crc32(msg)
+    if mib == 1:
+        plain = hb.crc32_segmented(data, off, ln, 1 << 16)
+        assert int(plain.view(torch.int32)[0]) & 0xFFFFFFFF == got
+
+
+def test_crc32_kernel_with_empty_and_long_lanes(card):
+    rng = np.random.default_rng(44)
+    data = torch.from_numpy(rng.integers(0, 256, 200_000, dtype=np.uint8)
+                            ).to(card)
+    lens = [0, 40_000, 0, 0, 1, 33_333, 0, 17, 39_999, 0]
+    offs = rng.integers(0, 200_000 - 40_000, len(lens)).tolist()
+    _crc_spans(data, list(zip(offs, lens)))
+    _crc_spans(data, [(5, 0)] * 40)                 # every lane empty
+
+
+def test_crc32_kernel_profile_and_registers(card, tmp_path, capsys):
+    """A profiled launch of one aligned segment alone fills its counters;
+    the kernels' registers and spills as ptxas reports them (none may
+    spill)."""
+    import subprocess
+    from zpaqfranz_tpu_torch.ops import build
+    seg = hb.CRC_SEG
+    buf = torch.zeros(3 * seg, dtype=torch.uint8, device=card)
+    start = (-buf.data_ptr()) % seg
+    prof = torch.zeros(len(hb.CRC_PROFILE), dtype=torch.int64, device=card)
+    launch = hb.CrcLaunch(buf, torch.tensor([start], device=card),
+                          torch.tensor([seg], device=card), profile=prof)
+    assert launch.segments == 1 and launch.group == 1
+    launch.run()
+    torch.cuda.synchronize()
+    cycles, pieces, comb, segs = prof.tolist()
+    assert pieces == seg // 16 and segs == 1 and cycles > 0 and comb > 0
+    rows = seg // hb.CRC_ROW
+    log = subprocess.run(build._command("crc32_lanes", tmp_path / "lib.so"),
+                         capture_output=True, text=True, check=True)
+    lines = [ln.strip() for ln in (log.stdout + log.stderr).splitlines()
+             if "registers" in ln or "spill" in ln]
+    with capsys.disabled():
+        print(f"\ncrc32_lanes: {cycles / rows:.1f} cycles a row of "
+              f"{hb.CRC_ROW} bytes alone; ptxas: " + "; ".join(lines))
+    assert lines and all(" 0 bytes spill stores" in ln for ln in lines
+                         if "spill" in ln)
 
 
 def test_hash_batched_lanes_on_card(card):
