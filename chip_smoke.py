@@ -32,7 +32,13 @@ table-access
 microbenchmark kernels (``experiments/mb_access.py`` A-E,
 ``experiments/mb_vmem_probe.py`` P1, P2) at every shape their scripts
 time, on the scripts' inputs and on seeded random tables and indices of
-the same shapes. The device BWT (``pre/bwt_device.py``) sorts one 16 MiB
+the same shapes (A also with every lane on the same row), each timed
+beside its chain floor: its dependent accesses priced at this run's
+chase (``mb_vmem_probe.chase_ns``: one thread walking a ring of pointers
+in shared memory, in L2 and in HBM, and a read of a word after the
+thread's own store in L2, run first, which also prices the CM design's
+chain floor) and the integer instructions between them. The
+device BWT (``pre/bwt_device.py``) sorts one 16 MiB
 block of text on the card, byte-identical to ``native.bwt_encode``, with
 its rounds and the share of ``torch.sort``. Then it drives the port's
 paths on the card. The
@@ -207,11 +213,15 @@ ONE_THREAD_M4_KBPS = 11.8
 # lane
 INTERP_LANE_KBPS = {"3": 82.5, "4": 22.8, "5": 16.4}
 INTERP_HCOMP = {"3": (4721, 20.3), "4": (21827, 25.8), "5": (46772, 38.4)}
-# per-step costs on this card from the table-access microbenchmarks
-# (PERF.md): a dependent L2 access (P1) and a dependent shared-memory step
-# (P2), in ns
-L2_STEP_NS = 313.0
-SHARED_STEP_NS = 75.0
+# The chase (mb_vmem_probe.chase_ns), run at each level before the kernel
+# checks: its ns a step price every chain floor below, the CM design's and
+# the table-access kernels'. A dependent integer instruction costs
+# CHAIN_CYCLES at the SM clock the chase's own cycle count gives.
+CHAIN_CYCLES = 4
+# Dependent instructions of a floor modulo by n as the work needs it, not as
+# a divide compiles: a mask where n is a power of two; else LOP3, IMAD.HI,
+# SHF, IMAD, IADD and VIMNMX (csrc/floor_mod.cuh)
+FLOOR_MOD_OPS = {True: 1, False: 6}
 
 # table-access microbenchmark kernels: smoke name, module, wrapper key, the
 # TPU kernel it replaces
@@ -226,21 +236,30 @@ MICRO = (("mb_gather", "mb_access", "gather", "experiments/mb_access.py:47"),
           "experiments/mb_vmem_probe.py:32"),
          ("lut_probe", "mb_vmem_probe", "lut",
           "experiments/mb_vmem_probe.py:68"))
-# 32-bit integer instructions per dependent access, counted loosely from
-# csrc/mb_access.cu and csrc/mb_vmem_probe.cu (loads and stores not
-# counted): A the index add, floor modulo (%, sign fix-up), address and
-# sum, 6; B and C the per-row compare, select, add or store and loop step,
-# 4 per row; D four __vadd4, a mask, an add and the address, 8; E one per
-# 16-byte cp.async and the wait, read and add; P1 the index's multiply and
-# two adds, the floor modulo, the address, four row adds and the
-# accumulator's add and mask, 14; P2 the add, floor modulo, add and mask,
-# 7. Filling a shared-memory column costs about 4 per element.
-MICRO_OPS_PER_ACCESS = {"gather": 6, "onehot": 4, "selwrite": 4,
-                        "lane_loop": 8, "lane_rw": 14, "lut": 7}
-MICRO_OPS_PER_ELEMENT = 4
+# 32-bit integer instructions for the operations bound (the JSON line's):
+# a fixed count of what the work itself needs, whatever a kernel's design
+# issues (loads and stores not counted; the table's staging is counted in
+# bytes). Per dependent access: A the index add, the address and the sum's
+# add, 3; D four per-byte adds (__vadd4) for the 16 bytes, a mask, an add
+# and the address, 8; P1 the index's multiply and two adds, the address,
+# four row adds and the accumulator's add and mask, 10; P2 the index add,
+# the address and the accumulator's add and mask, 4; A, P1 and P2 also a
+# floor modulo each (FLOOR_MOD_OPS). B and C: per access, per 32-bit word of
+# the lane's column (an int32 row, or four u8 rows): the load, compare,
+# select and add (B) or store (C), 4. E: one per 16 bytes copied and the
+# wait, read and add.
+MICRO_OPS_PER_ACCESS = {"gather": 3, "lane_loop": 8, "lane_rw": 10, "lut": 4}
+MICRO_OPS_PER_WORD = 4
 # P1 and P2 at their script's shapes: L = 64 lanes, ITERS = 64
 PROBE_L = 64
 PROBE_ITERS = 64
+# kernel times of the kernels' first design, one thread a lane with a
+# runtime divide in every floor modulo and B, C a row at a time (PERF.md,
+# kernel table), summed over each kernel's shapes, ms: for reading beside
+# the floors
+FIRST_MICRO_MS = {"gather": 1.5186, "onehot": 3.2478, "selwrite": 49.216,
+                "lane_loop": 0.0235, "dma": 0.0126, "lane_rw": 1.2810,
+                "lut": 0.0386}
 
 ALL_COMPONENTS_CFG = """
 comp 9 16 0 0 10
@@ -852,17 +871,47 @@ def cm_models() -> dict:
     return models
 
 
-def chain_floor_ns(model) -> float:
+def chase_steps(torch, dev) -> dict:
+    """ns of one step of the bare dependent chase at each level
+    (``mb_vmem_probe.chase_ns``), of a read of the word the thread's own
+    last store wrote to L2 ("l2_rw"), and under "ghz" the SM clock that the
+    shared chase's own cycle count gives over the same span."""
+    from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
+
+    steps = {}
+    for level in mp.CHASE:
+        ns, cycles = mp.chase_ns(level, dev)
+        steps[level] = ns
+        if level == "shared":
+            steps["ghz"] = cycles / ns
+        nbytes, stride, n = mp.CHASE[level]
+        log(f"chase [{level}]: {ns:.3f} ns a step ({cycles:.1f} cycles), "
+            f"{n} and {2 * n} steps over a ring of {nbytes} bytes, an entry "
+            f"every {stride} bytes")
+    ns, cycles = mp.chase_ns("l2_rw", dev)
+    steps["l2_rw"] = ns
+    words, apart, n = mp.CHASE_RW
+    log(f"chase [l2_rw]: {ns:.3f} ns ({cycles:.1f} cycles) a read of the "
+        f"word the thread's last store wrote to L2 and the store, "
+        f"{ns / steps['l2']:.3f} L2 steps; {n} and {2 * n} steps over "
+        f"{words} words {apart} bytes apart")
+    log(f"  SM clock under the chase: {steps['ghz']:.4f} GHz; a dependent "
+        f"integer instruction {CHAIN_CYCLES / steps['ghz']:.3f} ns")
+    return steps
+
+
+def chain_floor_ns(model, steps: dict) -> float:
     """Per-bit chain that the access costs give the CM kernels' design, for
     reading beside the measured time, not a bound: one dependent L2 access
     (phase (a)'s early reads), then one shared-memory step for phase (a)'s
     table read, one per component of the combine on thread 0 (AVG, MIX2,
-    MIX, ISSE, SSE), and two for the coder's bit and the update."""
+    MIX, ISSE, SSE), and two for the coder's bit and the update; each
+    priced at this run's chase (``chase_steps``)."""
     from zpaqfranz_tpu_torch.models import tables as T
 
     combine = sum(cp[0] in (T.AVG, T.MIX2, T.MIX, T.ISSE, T.SSE)
                   for cp in model.comps)
-    return L2_STEP_NS + SHARED_STEP_NS * (combine + 3)
+    return steps["l2"] + steps["shared"] * (combine + 3)
 
 
 def placement_line(model, name: str) -> str:
@@ -969,7 +1018,7 @@ def check_cm(torch, np, dev, seed: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def check_cm_encode(torch, np, dev, seed: int) -> dict:
+def check_cm_encode(torch, np, dev, seed: int, steps: dict) -> dict:
     """Hold the CM encode kernel against its plain version and the native
     engine's coded segments; time it on the -m4 native-check launch."""
     from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
@@ -1033,8 +1082,9 @@ def check_cm_encode(torch, np, dev, seed: int) -> dict:
                 f"thread: {ONE_THREAD_M4_KBPS} KB/s, "
                 f"{1e3 / (8 * ONE_THREAD_M4_KBPS):.2f} us per bit; "
                 f"{top / k_ms / ONE_THREAD_M4_KBPS:.2f}x); chain floor of "
-                f"the design {chain_floor_ns(model) / 1e3:.3f} us per bit "
-                f"(one L2 access, shared steps; for reading, not a bound)")
+                f"the design {chain_floor_ns(model, steps) / 1e3:.3f} us per "
+                f"bit (one L2 access and shared steps at this run's chase; "
+                f"for reading, not a bound)")
     model, in_bytes, out_bytes, ms = timing
     b_ms, b_by = bound(in_bytes + out_bytes + 4 * cmd.lut("cpu").numel()
                        + cm_touch_bytes(model, in_bytes),
@@ -1195,32 +1245,92 @@ def micro_work(kind: str, args) -> tuple:
     """``(bytes, operations, chain)`` of one call: the bytes it must move
     (A-C read the whole table, which their design stages in shared memory
     and which B and C touch row by row; D, E and P1 only the rows they
-    touch; P2 its LUT), the integer instructions (MICRO_OPS_PER_ACCESS) and
-    the length of the longest chain of dependent accesses."""
+    touch; P2 its LUT), the integer instructions (MICRO_OPS_PER_ACCESS,
+    MICRO_OPS_PER_WORD, FLOOR_MOD_OPS) and the length of the longest chain
+    of dependent accesses."""
     from zpaqfranz_tpu_torch.experiments import mb_access as mb
     from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
 
-    per = MICRO_OPS_PER_ACCESS.get(kind, 0)
+    def pow2(n):
+        return n & (n - 1) == 0
+
     rounds = mb.ITERS // 8
     if kind in ("gather", "onehot", "selwrite"):
         tab, _ = args
         S, n = tab.shape
-        rows = 1 if kind == "gather" else S
-        return (tab.numel() * tab.element_size() + 8 * n,
-                n * mb.ITERS * rows * per + S * n * MICRO_OPS_PER_ELEMENT,
-                mb.ITERS)
+        nbytes = tab.numel() * tab.element_size() + 8 * n
+        if kind == "gather":
+            per = MICRO_OPS_PER_ACCESS[kind] + FLOOR_MOD_OPS[pow2(S)]
+        else:
+            per = MICRO_OPS_PER_WORD * -(-(S * tab.element_size()) // 4)
+        return nbytes, n * mb.ITERS * per, mb.ITERS
     if kind in ("lane_loop", "dma"):
         idx, tab = args
         n, S = tab.shape
         width = dict(mb.D_SHAPES if kind == "lane_loop" else mb.E_SHAPES)[S]
         moved = (2 if kind == "lane_loop" else 1) * n * width
-        ops = per if kind == "lane_loop" else width // 16 + 3
+        ops = (MICRO_OPS_PER_ACCESS[kind] if kind == "lane_loop"
+               else width // 16 + 3)
         return moved + 4 * n + 4, n * rounds * ops, rounds
     if kind == "lane_rw":
         probes = PROBE_L * PROBE_ITERS
+        per = MICRO_OPS_PER_ACCESS[kind] + FLOOR_MOD_OPS[pow2(mp.SW - mp.W)]
         return 2 * 16 * probes + 4, probes * per, probes
     steps = PROBE_ITERS * 8
+    per = MICRO_OPS_PER_ACCESS[kind] + FLOOR_MOD_OPS[pow2(mp.LUT)]
     return 4 * mp.LUT + 4 * PROBE_L, PROBE_L * steps * per, steps
+
+
+def micro_floor_ns(kind: str, args, steps: dict,
+                   write_back: bool = False) -> float:
+    """The chain floor of one call: no design can be faster. Each lane's
+    (P1: the one thread's) dependent accesses, each priced at the chase
+    step of the level it touches, plus the dependent integer instructions
+    the work itself needs at CHAIN_CYCLES each: the adds and masks, and one
+    floor modulo (FLOOR_MOD_OPS) where the index is data-dependent. A:
+    the index add, the modulo, the address and the sum's add beside each
+    shared load. B: no row read depends on the chain, which is the index
+    add and modulo, the compare and select, the warp's sum and the
+    accumulator's add, and a warp's issue of its share of the rows, one
+    instruction a cycle: load, compare-select and add a word (four u8 rows
+    or one int32 row) each. C: a pass's index needs no data; each word's
+    load, select and store follow the last pass's store (one shared step and
+    the select), and a warp issues the load, compare, select and store of
+    its words. D: an L2 access and the add a round (``write_back``: the
+    access priced at the "l2_rw" chase, a read of the word the thread's
+    own last store wrote, since the next round reads the row it wrote). E:
+    the
+    first round's row from HBM, the others from L2, and the shared read of
+    the copy. P1: an L2 probe, the index multiply-add, the modulo, the
+    address and the accumulator's add and mask (the next probe reads
+    another row, so the write-back is off the chain). P2: a shared load,
+    the index add, the modulo (a mask: 4096 entries), the address and the
+    accumulator's add and mask."""
+    from zpaqfranz_tpu_torch.experiments import mb_access as mb
+
+    op = CHAIN_CYCLES / steps["ghz"]
+    cycle = 1 / steps["ghz"]
+    rounds = mb.ITERS // 8
+    if kind in ("gather", "onehot", "selwrite"):
+        tab, _ = args
+        S = tab.shape[0]
+        fm = FLOOR_MOD_OPS[S & (S - 1) == 0]
+        words = -(-(S * tab.element_size()) // 4)
+        k = -(-words // 32)
+        per = {"gather": steps["shared"] + op * (fm + 3),
+               "onehot": op * (fm + 5) + cycle * 3 * k,
+               "selwrite": steps["shared"] + op + cycle * 4 * k}[kind]
+        return mb.ITERS * per
+    if kind == "lane_loop":
+        return rounds * (steps["l2_rw" if write_back else "l2"] + op)
+    if kind == "dma":
+        return (steps["hbm"] + (rounds - 1) * steps["l2"]
+                + rounds * steps["shared"])
+    if kind == "lane_rw":
+        return PROBE_L * PROBE_ITERS * (steps["l2"]
+                                        + op * (FLOOR_MOD_OPS[False] + 4))
+    return PROBE_ITERS * 8 * (steps["shared"]
+                              + op * (FLOOR_MOD_OPS[True] + 4))
 
 
 def micro_random(torch, dev, kind: str, args, seed: int) -> list:
@@ -1247,7 +1357,15 @@ def micro_random(torch, dev, kind: str, args, seed: int) -> list:
 
     if kind in ("gather", "onehot", "selwrite"):
         tab, idx = args
-        return [("random table and starts", (like(tab), ints(idx.shape)))]
+        out = [("random table and starts", (like(tab), ints(idx.shape)))]
+        if kind == "gather":
+            # every lane on the same row at every step: no bank conflicts
+            # among a warp's loads, to set beside the random rows above
+            rows = like(tab[:, :1]).expand(tab.shape).contiguous()
+            out.append(("rows equal across lanes",
+                        (rows, ints(idx.shape[:1] + (1,)).expand(
+                            idx.shape).contiguous())))
+        return out
     if kind in ("lane_loop", "dma"):
         idx, tab = args
         n, S = tab.shape
@@ -1262,20 +1380,23 @@ def micro_random(torch, dev, kind: str, args, seed: int) -> list:
     return [("random table", (like(args[0]),))]
 
 
-def check_micro(torch, dev) -> list:
+def check_micro(torch, dev, steps: dict) -> list:
     """Hold the seven table-access kernels bit-exact against their plain
     versions on the card at every shape their scripts time, on the
     scripts' inputs and on seeded random inputs of the same shapes
     (``micro_random``); a second call must agree and leave the inputs
     unchanged. Times each kernel alone (``kernel_ms``), the whole call
     (CUDA events) and the plain version (host clock) on the scripts'
-    inputs; a kernel's row sums its shapes."""
+    inputs, each beside its chain floor (``micro_floor_ns``) and its bytes
+    or operations bound; A also on its random inputs (bank replays). A
+    kernel's row sums its shapes."""
     from zpaqfranz_tpu_torch.device import seconds
+    from zpaqfranz_tpu_torch.experiments import mb_access as mb
 
     out = []
     for k, (name, module, kind, replaces) in enumerate(MICRO):
         err = 0
-        ms = plain_ms = 0.0
+        ms = plain_ms = floor_ms = floor2_ms = 0.0
         nbytes = ops = 0
         cases = micro_cases(torch, dev, kind)
         for seed, (label, run, plain, args) in enumerate(cases, 16 * k):
@@ -1297,23 +1418,49 @@ def check_micro(torch, dev) -> list:
                 check(all(torch.equal(a, b) for a, b in zip(inputs, before)),
                       f"{name} changed its inputs [{label}, {what}]")
                 if inputs is not args:
+                    timed = ""
+                    if kind == "gather":
+                        r_ms = kernel_ms(torch, run, inputs, f"{kind}_kernel")
+                        timed = (f", kernel {r_ms:.4f} ms = "
+                                 f"{r_ms * 1e6 / mb.ITERS:.1f} "
+                                 f"ns per access")
                     log(f"{name} [{label}, {what}]: identical to plain "
-                        f"({p_ms:.1f} ms)")
+                        f"({p_ms:.1f} ms){timed}")
                     continue
                 k_ms = kernel_ms(torch, run, args, f"{kind}_kernel")
                 call_ms = seconds(run, *args) * 1e3
                 b, o, chain = micro_work(kind, args)
                 b_ms, b_by = bound(b, o)
+                f_ms = micro_floor_ns(kind, args, steps) / 1e6
+                if kind == "lane_loop":
+                    f2_ms = micro_floor_ns(kind, args, steps, True) / 1e6
+                    floor2_ms += f2_ms
+                    log(f"{name} [{label}]: a round's read priced at the "
+                        f"l2_rw chase: floor {f2_ms:.5f} ms "
+                        f"({f2_ms / k_ms:.1%} of it reached)")
                 log(f"{name} [{label}]: kernel {k_ms:.4f} ms = "
                     f"{k_ms * 1e6 / chain:.1f} ns per dependent access "
                     f"({chain} in the chain; the whole call {call_ms:.4f} "
-                    f"ms), bound {b_ms:.5f} ms ({b_by}), plain {p_ms:.1f} "
-                    f"ms; identical")
+                    f"ms), chain floor {f_ms:.5f} ms ({f_ms / k_ms:.1%} of "
+                    f"it reached), bound {b_ms:.5f} ms ({b_by}), plain "
+                    f"{p_ms:.1f} ms; identical")
                 ms += k_ms
                 plain_ms += p_ms
+                floor_ms += f_ms
                 nbytes += b
                 ops += o
         b_ms, b_by = bound(nbytes, ops)
+        old = FIRST_MICRO_MS[kind]
+        log(f"{name} over its shapes: kernel {ms:.4f} ms against its chain "
+            f"floor {floor_ms:.5f} ms ({floor_ms / ms:.1%}; the first design "
+            f"{old} ms, {floor_ms / old:.1%}, {old / ms:.2f}x this one), "
+            f"bytes/operations bound {b_ms:.6f} ms ({b_by}, "
+            f"{b_ms / ms:.2%})")
+        if floor2_ms:
+            log(f"{name} over its shapes, a round's read priced at the "
+                f"l2_rw chase: chain floor {floor2_ms:.5f} ms "
+                f"({floor2_ms / ms:.1%}; the first design "
+                f"{floor2_ms / old:.1%})")
         out.append({"name": name, "route": "cuda",
                     "source": f"zpaqfranz_tpu_torch/csrc/{module}.cu",
                     "replaces": replaces, "max_abs_err": err, "ms": ms,
@@ -2035,11 +2182,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
 
+    t0 = time.perf_counter()
+    steps = chase_steps(torch, dev)
+    log(f"  (the chase took {time.perf_counter() - t0:.1f} s)")
     kernels = []
     for fn, seed in ((lambda s: check_hash(torch, np, dev, s, "sha1"), 1),
                      (lambda s: check_hash(torch, np, dev, s, "sha256"), 6),
                      (lambda s: check_cm(torch, np, dev, s), 2),
-                     (lambda s: check_cm_encode(torch, np, dev, s), 7)):
+                     (lambda s: check_cm_encode(torch, np, dev, s, steps), 7)):
         t0 = time.perf_counter()
         kernels.append(fn(seed))
         torch.cuda.synchronize()
@@ -2060,7 +2210,7 @@ def main() -> int:
     log(f"  (CM one-lane rates and profiles took "
         f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    kernels += check_micro(torch, dev)
+    kernels += check_micro(torch, dev, steps)
     log(f"  (table-access kernel checks took {time.perf_counter() - t0:.1f} "
         f"s)")
 

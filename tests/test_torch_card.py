@@ -520,6 +520,120 @@ def test_probe_kernels_match_plain(card):
     _kernel_matches_plain(p2, "lut", lut)
 
 
+def _random_column_inputs(S, dtype, n, seed, offset=0):
+    """A random (S, n) table of ``dtype``, starting ``offset`` elements into
+    its storage (a view the 16-byte staging loads cannot take), and random
+    int32 start indices, most of them negative."""
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randint(-2**31, 2**31, (S * n + offset,), generator=g,
+                         dtype=torch.int64)
+    flat = (flat & 0xFF if dtype == torch.uint8 else flat).to(dtype)
+    idx = torch.randint(-2**31, 2**31, (1, n), generator=g,
+                        dtype=torch.int64).to(torch.int32)
+    return flat[offset:].view(S, n), idx
+
+
+@pytest.mark.parametrize("kind", ["gather", "onehot", "selwrite"])
+@pytest.mark.parametrize("S,dtype", [
+    (1, torch.uint8), (1, torch.int32), (33, torch.uint8), (33, torch.int32),
+    (1000, torch.uint8), (1000, torch.int32), (mb.SMEM_MAX, torch.uint8),
+    (mb.SMEM_MAX // 4, torch.int32)])
+def test_column_kernels_at_edge_sizes(card, monkeypatch, kind, S, dtype):
+    """A, B, C at S = 1, 33, 1000 (the reciprocal floor modulo) and the
+    largest S a block holds, over 130 lanes (not a multiple of any block's
+    lanes; 3 at the largest S), random tables and starts."""
+    monkeypatch.setattr(mb, "ITERS", 8 if S > 1000 else 32)
+    n = 3 if S > 1000 else 130
+    tab, idx = _random_column_inputs(S, dtype, n, S + 7)
+    mk = {"gather": mb.mk_gather_kernel, "onehot": mb.mk_onehot_kernel,
+          "selwrite": mb.mk_selwrite_kernel}[kind]
+    _kernel_matches_plain(mk(S, dtype), kind, tab.to(card), idx.to(card))
+
+
+@pytest.mark.parametrize("kind", ["gather", "onehot", "selwrite"])
+@pytest.mark.parametrize("S,dtype,offset", [(256, torch.uint8, 3),
+                                            (2048, torch.uint8, 4),
+                                            (512, torch.int32, 1),
+                                            (8192, torch.int32, 2)])
+def test_column_kernels_stage_any_alignment(card, monkeypatch, kind, S,
+                                            dtype, offset):
+    """Tables that start 1-4 elements into their storage, so that the
+    staging takes one element at a time instead of 16 bytes, at the
+    scripts' sizes over 128 lanes."""
+    monkeypatch.setattr(mb, "ITERS", 32)
+    tab, idx = _random_column_inputs(S, dtype, mb.L, S + offset, offset)
+    mk = {"gather": mb.mk_gather_kernel, "onehot": mb.mk_onehot_kernel,
+          "selwrite": mb.mk_selwrite_kernel}[kind]
+    _kernel_matches_plain(mk(S, dtype), kind, tab.to(card), idx.to(card))
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 3000, mp.LUT, mb.SMEM_MAX // 4])
+def test_lut_kernel_at_both_modulo_kinds(card, n):
+    """P2 with a random LUT of n entries (a mask at 1 and 4096, the
+    reciprocal otherwise; 16-byte staging where n % 4 == 0) over 200 lanes,
+    two blocks of 128."""
+    g = torch.Generator().manual_seed(n)
+    lut = torch.randint(-2**31, 2**31, (n,), generator=g,
+                        dtype=torch.int64).to(torch.int32).to(card)
+    p2 = lambda t: mp.lut_probe(t, 200, 4)           # noqa: E731
+    p2.plain = lambda t: mp.lut_plain(t, 200, 4)
+    _kernel_matches_plain(p2, "lut", lut)
+
+
+@pytest.mark.parametrize("n", [1, 133, 265])
+def test_lane_loop_and_dma_kernels_at_odd_lane_counts(card, n):
+    """D (aligned and unaligned rows) and E over lane counts that leave
+    the last block of ``spread_plan`` part-empty on a 132-SM card."""
+    g = torch.Generator().manual_seed(n)
+    S = 512
+    tab = torch.randint(0, 256, (n, S), generator=g, dtype=torch.uint8)
+    idx = torch.randint(0, S - 64, (n, 1), generator=g).to(torch.int32)
+    _kernel_matches_plain(mb.mk_lane_loop_kernel(S, 16), "lane_loop",
+                          idx.to(card), tab.to(card))
+    idx = idx // 16 * 16
+    _kernel_matches_plain(mb.mk_lane_loop_kernel(S, 16), "lane_loop",
+                          idx.to(card), tab.to(card))
+    _kernel_matches_plain(mb.mk_dma_kernel(S, 64), "dma", idx.to(card),
+                          tab.to(card))
+
+
+@pytest.mark.parametrize("sw", [36, 1000, mp.SW])
+def test_lane_rw_kernel_at_both_modulo_kinds(card, sw):
+    """P1 on a random table whose SW - W is a power of two (a mask), 996 or
+    the script's 32764 (the reciprocal), from random, mostly negative
+    words over 5 lanes."""
+    g = torch.Generator().manual_seed(sw)
+    tab = torch.randint(-2**31, 2**31, (5, sw), generator=g,
+                        dtype=torch.int64).to(torch.int32).to(card)
+    p1 = lambda t: mp.lane_rw_probe(t, 12)           # noqa: E731
+    p1.plain = lambda t: mp.lane_rw_plain(t, 12)
+    _kernel_matches_plain(p1, "lane_rw", tab)
+
+
+@pytest.mark.parametrize("W", [32, 48])
+def test_lane_loop_kernel_at_wider_rows(card, W):
+    """D with rows of several 16-byte units (the first outside the loop
+    over the others) and byte by byte, on a random table over 133 lanes."""
+    g = torch.Generator().manual_seed(W)
+    S = 1024
+    tab = torch.randint(0, 256, (133, S), generator=g, dtype=torch.uint8)
+    idx = torch.randint(0, S - W, (133, 1), generator=g).to(torch.int32)
+    for rows in (idx // 16 * 16, idx):
+        _kernel_matches_plain(mb.mk_lane_loop_kernel(S, W), "lane_loop",
+                              rows.to(card), tab.to(card))
+
+
+def test_chase_steps_order_the_levels(card):
+    """The chase ends where its ring says (``chase_ns`` checks it), and a
+    shared step is faster than an L2 step, which is faster than HBM's."""
+    got = {level: mp.chase_ns(level, card)
+           for level in (*mp.CHASE, "l2_rw")}
+    print({k: (round(ns, 2), round(c, 1)) for k, (ns, c) in got.items()})
+    assert 0 < got["shared"][0] < got["l2"][0] < got["hbm"][0]
+    assert got["l2_rw"][0] > 0
+    assert all(c > 0 for _, c in got.values())
+
+
 def test_ladder_codec_stage_on_card(card):
     """-m3 at 64 lanes of 512 bytes (2 blocks of the CM kernels): every
     lane codes as the host engine does and decodes back."""

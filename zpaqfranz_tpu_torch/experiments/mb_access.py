@@ -8,7 +8,8 @@ did on the TPU:
   B. one-hot gather (compare-select-sum over every row of the column)
   C. select-pass write (a select over every row of the column per write)
   D. per-lane row read/write at a dynamic offset in device memory
-  E. per-lane copy of a row from device memory into shared memory (cp.async)
+  E. per-lane copy of a row from device memory into shared memory (a bulk
+     copy of the tensor memory accelerator, waited on by an mbarrier)
   F. PyTorch ``gather`` / ``scatter_`` on (L, S)
 
 A to E are the CUDA kernels of ``csrc/mb_access.cu``; beside each is its
@@ -16,9 +17,12 @@ plain PyTorch version. ``mk_*_kernel`` return ``run(...)`` with the TPU
 script's argument order and layouts: ``run`` launches the kernel for CUDA
 tensors, takes the plain version for CPU tensors and raises for any other
 device; ``run.plain`` is the plain version on any device. No ``run``
-changes the caller's tensors. Each kernel runs ITERS dependent iterations
-(ITERS / 8 rounds over the lanes for D and E); the reported number is ns
-per iteration (all lanes).
+changes the caller's tensors. A, B and C launch with ``column_plan``'s
+lanes, threads, blocks and shared bytes, and take every floor modulo by S
+through ``mod_plan``'s reciprocal (``csrc/floor_mod.cuh``): no divide in
+their chains. D and E spread their lanes over the SMs (``spread_plan``).
+Each kernel runs ITERS dependent iterations (ITERS / 8 rounds over the
+lanes for D and E); the reported number is ns per iteration (all lanes).
 
     python -m zpaqfranz_tpu_torch.experiments.mb_access [--device cpu]
 """
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +58,78 @@ E_SHAPES = ((1 << 20, 64),)
 F_SIZES = (1 << 14, 1 << 18)
 
 _ESIZE = {torch.uint8: 1, torch.int32: 4}
+#: bytes of one staging load where a row segment allows it
+VEC_BYTES = 16
+#: A: threads a block (its T lanes' chains, and all of them stage)
+GATHER_THREADS = 512
+#: B, C: lanes a block at most, one warp each (a warp per SM sub-partition)
+WARP_LANES = 4
+#: D, E: lanes a block at most, the lanes spread over the SMs
+SPREAD_LANES = 128
+
+
+class ModPlan(NamedTuple):
+    """A floor modulo by ``n`` as ``csrc/floor_mod.cuh`` computes it: a mask
+    when ``pow2``; else ``q = umulhi(x & 0x7fffffff, m) >> shift`` and
+    ``k = 2^31 mod n`` for the sign bit."""
+    n: int
+    pow2: bool
+    m: int
+    shift: int
+    k: int
+
+
+def mod_plan(n: int) -> ModPlan:
+    """The reciprocal of ``n`` (1 <= n < 2^31) that the kernels' floor
+    modulo takes, computed once per launch: ``m = ceil(2^(31 + l) / n)``
+    with ``l = ceil(log2 n)``, below 2^32, exact for the 31 low bits of
+    any int32 (Granlund and Montgomery 1994, theorem 4.2)."""
+    if not 1 <= n < 1 << 31:
+        raise ValueError(f"no floor modulo by {n}")
+    if n & (n - 1) == 0:
+        return ModPlan(n, True, 0, 0, 0)
+    l = n.bit_length()
+    return ModPlan(n, False, -(-(1 << (31 + l)) // n), l - 1, (1 << 31) % n)
+
+
+class ColumnPlan(NamedTuple):
+    """A launch of kernel A, B or C: ``lanes`` per block, ``threads`` per
+    block, ``blocks``, ``smem`` shared bytes per block and ``pitch``: the
+    bytes of a row of the block's columns (A) or of one lane's column (B,
+    C)."""
+    lanes: int
+    threads: int
+    blocks: int
+    smem: int
+    pitch: int
+
+
+def spread_plan(n: int, sms: int, width: int = 0
+                ) -> Tuple[int, int, int, int]:
+    """The launch of kernel D (``width`` 0) or E over ``n`` lanes on a card
+    of ``sms`` SMs: ``(lanes, threads, blocks, smem)``. The lanes spread
+    over the SMs, ``ceil(n / sms)`` a block (at most SPREAD_LANES), one
+    thread each in whole warps; E's shared memory holds an 8-byte mbarrier
+    a lane, padded to 16 bytes, then a ``width``-byte row a lane."""
+    lanes = max(1, min(SPREAD_LANES, -(-n // sms)))
+    smem = -(-(8 * lanes) // 16) * 16 + lanes * width if width else 0
+    return lanes, -(-lanes // 32) * 32, -(-n // lanes), smem
+
+
+def column_plan(kind: str, S: int, esize: int, n: int) -> ColumnPlan:
+    """The launch of kernel ``kind`` over ``n`` lanes of ``S`` rows of
+    ``esize`` bytes. A: a thread a lane, ``VEC_BYTES // esize`` lanes a
+    block (a row segment one 16-byte load; fewer where a block's shared
+    memory cannot hold that many columns), so that the staging spreads over
+    many SMs, and GATHER_THREADS threads staging. B, C: a warp a lane, at
+    most WARP_LANES lanes a block, each column padded to 16 bytes."""
+    if kind == "gather":
+        T = max(1, min(n, VEC_BYTES // esize, SMEM_MAX // (S * esize)))
+        return ColumnPlan(T, GATHER_THREADS, -(-n // T), S * T * esize,
+                          T * esize)
+    pitch = -(-(S * esize) // 16) * 16
+    T = max(1, min(n, WARP_LANES, SMEM_MAX // pitch))
+    return ColumnPlan(T, 32 * T, -(-n // T), T * pitch, pitch)
 
 
 def wrap32(x):
@@ -80,6 +156,10 @@ def device_of(*ts: torch.Tensor) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     return dev
+
+
+def sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _lanes(t: torch.Tensor) -> int:
@@ -193,6 +273,7 @@ def _column_kernel(kind: str, plain: Callable, S: int, dtype: torch.dtype
         raise ValueError(f"a column of {S} rows does not fit one block's "
                          f"{SMEM_MAX} bytes of shared memory")
     iters = ITERS
+    mod = mod_plan(S)
 
     def run(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         n = _lanes(tab)
@@ -203,7 +284,8 @@ def _column_kernel(kind: str, plain: Callable, S: int, dtype: torch.dtype
             return plain(tab, idx, iters)
         out = torch.empty((1, n), dtype=torch.int32, device=dev)
         build.call("mb_access", f"mb_{kind}_launch", dev, tab, idx, out, S,
-                   n, iters, _ESIZE[dtype])
+                   n, iters, _ESIZE[dtype],
+                   *column_plan(kind, S, _ESIZE[dtype], n), *mod[1:])
         launches[kind] += 1
         return out
     run.plain = lambda tab, idx: plain(tab, idx, iters)
@@ -241,7 +323,8 @@ def mk_lane_loop_kernel(S: int, W: int) -> Callable:
         vec = (aligned and W % 16 == 0 and S % 16 == 0
                and tab.data_ptr() % 16 == 0 and work.data_ptr() % 16 == 0)
         build.call("mb_access", "mb_lane_loop_launch", dev, idx, tab, work,
-                   out, S, W, n, rounds, int(vec))
+                   out, S, W, n, rounds, int(vec),
+                   *spread_plan(n, sm_count(dev))[:3])
         launches["lane_loop"] += 1
         return out
     run.plain = lambda idx, tab: lane_loop_plain(idx, tab, W, rounds)
@@ -250,8 +333,10 @@ def mk_lane_loop_kernel(S: int, W: int) -> Callable:
 
 def mk_dma_kernel(S: int, W: int) -> Callable:
     """``run(idx, hbm)``: idx (L, 1) int32, hbm (L, S) uint8 -> (1, 1)
-    int32. cp.async moves 16-byte granules, so ``W``, ``S`` and every row
-    start must be multiples of 16 (on the CPU too); others raise."""
+    int32. A bulk copy moves multiples of 16 bytes between 16-byte
+    boundaries, so ``W``, ``S`` and every row start must be multiples of 16
+    (on the CPU too); others raise. ``W`` is at most SMEM_MAX // 128, so
+    that a block of SPREAD_LANES lanes holds its rows and mbarriers."""
     if W < 16 or W % 16 or S % 16 or W * 128 > SMEM_MAX:
         raise ValueError("W and S must be multiples of 16, W at most "
                          f"{SMEM_MAX // 128}")
@@ -270,7 +355,7 @@ def mk_dma_kernel(S: int, W: int) -> Callable:
             return dma_plain(idx, hbm, W, rounds)
         out = torch.zeros((1, 1), dtype=torch.int32, device=dev)
         build.call("mb_access", "mb_dma_launch", dev, idx, hbm, out, S, W, n,
-                   rounds)
+                   rounds, *spread_plan(n, sm_count(dev), W))
         launches["dma"] += 1
         return out
     run.plain = lambda idx, hbm: dma_plain(idx, hbm, W, rounds)
@@ -331,7 +416,7 @@ def cases(kind: str, device) -> Iterator[Tuple[str, Callable, tuple, float]]:
                    8 / L)
     elif kind == "dma":
         for S, W in E_SHAPES:
-            yield (f"E per-lane device->shared cp.async W={W} (ns per "
+            yield (f"E per-lane device->shared bulk copy W={W} (ns per "
                    f"lane-dma)", mk_dma_kernel(S, W),
                    (((col * 4096) % S)[:, None].contiguous(),
                     torch.zeros((L, S), dtype=torch.uint8, device=dev)),

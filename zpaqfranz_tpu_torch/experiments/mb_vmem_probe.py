@@ -16,6 +16,14 @@ The kernels are ``csrc/mb_vmem_probe.cu``; beside each is its plain
 PyTorch version, which the wrapper takes for CPU tensors. Neither changes
 the caller's tensors.
 
+``chase_ns(level)`` is the microbenchmarks' yardstick, not a port of a TPU
+kernel: one thread walks a ring of pointers in shared memory, in an
+L2-resident ring of a few MiB or in an HBM-resident ring of several hundred
+MiB, each step's address the word the step before loaded; at level
+"l2_rw" it reads back the word its own last store wrote to L2. It runs on
+the card only; ``chip_smoke.py`` prices every microbenchmark's chain floor
+with it.
+
     python -m zpaqfranz_tpu_torch.experiments.mb_vmem_probe [L] [ITERS] [--device cpu]
 """
 
@@ -23,13 +31,14 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..device import resolve, seconds
 from ..ops import build
-from .mb_access import SMEM_MAX, check, device_name, device_of, wrap32
+from .mb_access import (SMEM_MAX, check, device_name, device_of, mod_plan,
+                        wrap32)
 
 SW = 32768            # ISSE ht as u32 words: 131072 B / 4
 W = 4                 # 16-byte row = 4 words
@@ -37,8 +46,23 @@ LUT = 4096            # P2's table entries
 MIX = 741103597       # P1's index multiplier
 ACC_MASK = (1 << 20) - 1
 
+#: P2: threads a block, one lane each (all of them stage the LUT)
+LUT_THREADS = 128
+
 #: kernel launches made by each wrapper in this process
 launches = {"lane_rw": 0, "lut": 0}
+#: the chase's levels: ring bytes, bytes between entries, steps timed
+CHASE = {"shared": (16 << 10, 4, 1 << 16), "l2": (4 << 20, 128, 1 << 14),
+         "hbm": (512 << 20, 128, 1 << 13)}
+#: bytes written after the HBM ring is filled: twice the H100's 50 MB L2
+CHASE_FLUSH = 128 << 20
+#: the "l2_rw" chase (a store, then a read of the same word): words, bytes
+#: between them, steps (a word's share in turn)
+CHASE_RW = (64, 4224, 1 << 14)
+#: timed reps of a chase after its warm-up; the median is kept (the SM
+#: clock may still be rising in the first, which makes a difference of two
+#: launches read fast)
+CHASE_REPS = 7
 
 
 def lane_rw_plain(tab: torch.Tensor, iters: int) -> torch.Tensor:
@@ -70,6 +94,13 @@ def lut_plain(lut: torch.Tensor, lanes: int, iters: int) -> torch.Tensor:
     return acc.to(torch.int32)[None]
 
 
+def lut_plan(n: int, lanes: int) -> Tuple[int, int, int]:
+    """P2's launch over ``lanes`` lanes with an ``n``-entry LUT:
+    ``(threads, blocks, smem)``, LUT_THREADS threads a block, one lane each,
+    and the LUT in shared memory, padded to 16 bytes."""
+    return (LUT_THREADS, -(-lanes // LUT_THREADS), -(-(4 * n) // 16) * 16)
+
+
 def lane_rw_probe(tab: torch.Tensor, iters: int) -> torch.Tensor:
     """P1: tab (L, SW) int32 with SW > W -> (1, 1) int32."""
     n = tab.shape[0] if tab.dim() == 2 else 0
@@ -83,7 +114,7 @@ def lane_rw_probe(tab: torch.Tensor, iters: int) -> torch.Tensor:
     work = tab.clone()
     out = torch.empty((1, 1), dtype=torch.int32, device=dev)
     build.call("mb_vmem_probe", "mb_lane_rw_launch", dev, work, out, n, sw, W,
-               iters)
+               iters, *mod_plan(sw - W)[1:])
     launches["lane_rw"] += 1
     return out
 
@@ -101,9 +132,109 @@ def lut_probe(lut: torch.Tensor, lanes: int, iters: int) -> torch.Tensor:
         return lut_plain(lut, lanes, iters)
     out = torch.empty((1, lanes), dtype=torch.int32, device=dev)
     build.call("mb_vmem_probe", "mb_lut_launch", dev, lut, out, n, lanes,
-               iters * 8)
+               iters * 8, *lut_plan(n, lanes), *mod_plan(n)[1:])
     launches["lut"] += 1
     return out
+
+
+def chase_ring(slots: int, seed: int, device) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """``(order, nxt)``: a random order of ``slots`` slots and, for each
+    slot, the next slot of that order, the last leading back to the first:
+    one cycle through every slot."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    order = torch.randperm(slots, generator=g, device=device)
+    nxt = torch.empty_like(order)
+    nxt[order] = order.roll(-1)
+    return order, nxt
+
+
+def chase_end(order: torch.Tensor, steps: int) -> int:
+    """The slot a walk from slot 0 reaches after ``steps`` steps."""
+    at = int((order == 0).nonzero()[0, 0])
+    return int(order[(at + steps) % order.numel()])
+
+
+def chase_ns(level: str, device=None, seed: int = 0) -> Tuple[float, float]:
+    """``(ns, cycles)`` of one step of the bare dependent chase at ``level``
+    ("shared", "l2" or "hbm"; or "l2_rw", a read of the word the thread's
+    last store wrote to L2) on the card. A rep queues three launches: one
+    of ``CHASE[level]`` steps (``CHASE_RW``'s for "l2_rw") that keeps the
+    card busy while the host queues the others, then, between CUDA events,
+    one of as many steps and one of twice as many. The step is the
+    difference of the two timed launches over those steps, so that the
+    launch and the ring's fill cancel, and the cycles are the difference of
+    their own clock counts, over the same span. The median of CHASE_REPS
+    reps after a warm-up is kept. The L2 ring's walks repeat the warm-up's
+    (the ring is in L2); the HBM ring is pushed out of L2 after it is
+    filled, and each walk goes on from where the last ended, onto entries
+    no launch has read. Fails unless each walk ends on the slot
+    ``chase_end`` gives (for "l2_rw": on its count of stores)."""
+    dev = resolve(device)
+    if dev.type != "cuda":
+        raise ValueError("the chase times the card: it has no plain version")
+    if level == "l2_rw":
+        words, apart, steps = CHASE_RW
+
+        def launch(n: int, out: torch.Tensor) -> int:
+            cells = torch.zeros(words * apart // 8, dtype=torch.int64,
+                                device=dev)
+            build.call("mb_vmem_probe", "mb_chase_rw_launch", dev, cells,
+                       words, apart // 8, out, n // words)
+            return n
+
+        def ended(out: torch.Tensor) -> int:
+            return out[0].item()
+    else:
+        nbytes, stride, steps = CHASE[level]
+        slots = nbytes // stride
+        order, nxt = chase_ring(slots, seed, dev)
+        if level == "shared":
+            ring = nxt.to(torch.int32)
+        else:
+            ring = torch.zeros(nbytes // 8, dtype=torch.int64, device=dev)
+            ring[::stride // 8] = ring.data_ptr() + nxt * stride
+            if level == "hbm":      # push the ring's last lines out of L2
+                torch.ones(CHASE_FLUSH, dtype=torch.uint8, device=dev)
+        first = [0]             # the slot the next walk starts from, as a step
+
+        def launch(n: int, out: torch.Tensor) -> int:
+            if level == "shared":
+                build.call("mb_vmem_probe", "mb_chase_shared_launch", dev,
+                           ring, out, slots, n)
+                return chase_end(order, n)
+            build.call("mb_vmem_probe", "mb_chase_global_launch", dev, ring,
+                       chase_end(order, first[0]) * stride, out, n)
+            want = chase_end(order, first[0] + n)
+            if level == "hbm":
+                first[0] += n
+            return want
+
+        def ended(out: torch.Tensor) -> int:
+            end = out[0].item()
+            return end if level == "shared" else (
+                end - ring.data_ptr()) // stride
+
+    reps = []
+    for rep in range(1 + CHASE_REPS):   # a warm-up, then timed reps
+        outs = torch.zeros((3, 2), dtype=torch.int64, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        wants = [launch(steps, outs[0])]
+        ev[0].record()
+        wants.append(launch(steps, outs[1]))
+        ev[1].record()
+        wants.append(launch(2 * steps, outs[2]))
+        ev[2].record()
+        ev[2].synchronize()
+        for out, want in zip(outs, wants):
+            if ended(out) != want:
+                raise RuntimeError(f"the {level} chase ended on "
+                                   f"{ended(out)}, want {want}")
+        if rep:
+            t1, t2 = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+            c1, c2 = outs[1, 1].item(), outs[2, 1].item()
+            reps.append(((t2 - t1) * 1e6 / steps, (c2 - c1) / steps))
+    return sorted(reps)[len(reps) // 2]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
