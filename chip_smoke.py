@@ -65,7 +65,17 @@ equal to hashlib and ``native.crc32``. The batched coders
 and the per-bit ``BatchedPredictor`` on the card, equal to the scalar
 predictor.
 ``zfsbackup`` twice and ``zfsrestore`` at -m4 through the CLI on a fake
-``zfs``, the received streams equal to the sent ones.
+``zfs``, the received streams equal to the sent ones. Every path above is
+forced onto the card (``device=dev``, or ``-tpu`` on the CLI). The engine
+gate (``device_policy.py``), whose record the smoke points at
+``build/smoke/device_cal.json`` before any phase: ``b`` through the CLI
+records SHA-1 and -m3, -m4 and -m5 at 1 lane and a wider lane count on the
+card beside the host engine; for each main-path level the gate's decision
+and predicted rates beside the measured ``a`` (the faster engine wherever
+the two differ by more than 2x; -m4's one lane to the host engine); an
+unforced ``a -m3`` of a 1.25 MiB tree under the measured record and under
+one with the card 10x faster, byte-identical; an unforced ``t`` through
+the SHA-1 kernel.
 The measurement path: the two microbenchmark entry points' ``main()``, and the
 device bench's whole lane ladder (SHA-1 lanes, then CM encode and decode
 at -m3 x 256 and x 1024 lanes and "4.0" x 8 and x 32, every lane equal to
@@ -196,6 +206,9 @@ PREDICTOR_BYTES = 16
 # zfsbackup / zfsrestore at -m4 on a fake zfs: a 128 KiB dataset, backed up
 # twice (the second time with a changed tail)
 ZFS_BYTES = 128 << 10
+# the engine gate's unforced adds: one -m3 lane of text, above the gate's
+# 1 MiB job floor
+GATE_BYTES = 5 << 18
 # CM kernel vs plain: four short lanes per model. The plain version runs a
 # few hundred tensor ops per coded bit (~80 ms per decoded byte at -m4), so
 # a main-path lane of ~1 MB would take about a day; longer lanes are held
@@ -1613,7 +1626,8 @@ def main_path(torch, np, dev, level: str, nbytes: int, seed: int,
     for algo in ("sha1", "sha256"):
         out_text = io.StringIO()
         with contextlib.redirect_stdout(out_text):
-            rc = in_dir(WORK, lambda: cli_main(["sum", name, f"-{algo}"]))
+            rc = in_dir(WORK, lambda: cli_main(["sum", name, f"-{algo}",
+                                                "-tpu"]))
         lines = [f"{hashlib.new(algo, b).hexdigest().upper()}  {name}/{rel}"
                  for rel, b in want.items()]
         check(rc == 0 and out_text.getvalue().splitlines() == lines,
@@ -1665,7 +1679,7 @@ def main_path(torch, np, dev, level: str, nbytes: int, seed: int,
     shutil.rmtree(src)
     shutil.rmtree(out)
     return {"level": level, "bytes": total, "a_s": t_add, "a_host_s": t_host,
-            "x_s": t_x, "t_s": t_t,
+            "x_s": t_x, "t_s": t_t, "cm_bytes": cm_bytes, "lanes": modeled,
             "enc_KBps": cm_bytes / modeled / t_add / 1e3,
             "lane_KBps": cm_bytes / max(1, modeled) / t_x / 1e3}
 
@@ -1733,16 +1747,18 @@ def sharded_lanes(torch, np, dev, seed: int) -> int:
 
 
 def text_corpus(np, root: pathlib.Path, nbytes: int, seed: int) -> None:
-    """Seeded text files of 512 KiB, no two alike (nothing dedups)."""
+    """Seeded text files of 512 KiB (the last one the rest of ``nbytes``),
+    no two alike (nothing dedups)."""
     rng = np.random.default_rng(seed)
     vocab = [bytes(rng.integers(97, 123, int(k), dtype=np.uint8))
              for k in rng.integers(2, 10, 5000)]
     root.mkdir(parents=True)
-    for k in range(nbytes // (512 << 10)):
+    for k in range(-(-nbytes // (512 << 10))):
         idx = rng.zipf(1.2, 120000) % len(vocab)
         body = b" ".join(vocab[i] for i in idx)
         check(len(body) >= 512 << 10, "text corpus: a file came out short")
-        (root / f"t{k:02d}.txt").write_bytes(body[:512 << 10])
+        (root / f"t{k:02d}.txt").write_bytes(
+            body[:min(512 << 10, nbytes - (k << 19))])
 
 
 def multihost_add(torch, np, dev, seed: int) -> int:
@@ -1819,7 +1835,7 @@ def backup_commands(np, seed: int) -> int:
     for k in (1, 2):
         e0 = cme.launches
         t0 = time.perf_counter()
-        rc, out = run_cli(["backup", "bk", "bsrc", "-m4"])
+        rc, out = run_cli(["backup", "bk", "bsrc", "-m4", "-tpu"])
         check(rc == 0 and out.endswith(f"{k} parts indexed in "
                                        f"bk_backup.txt\n"),
               f"backup {k}: rc {rc}, {out!r}")
@@ -1835,7 +1851,7 @@ def backup_commands(np, seed: int) -> int:
                                       f"0 missing")):
         d0, s0 = cmd.launches, sha1.launches
         t0 = time.perf_counter()
-        rc, out = run_cli(argv)
+        rc, out = run_cli(argv + ["-tpu"])
         dt = time.perf_counter() - t0
         check(line in out and rc == (1 if argv[0] == "c" else 0),
               f"{argv[0]}: rc {rc}, {out!r}")
@@ -2085,7 +2101,7 @@ def zfs_commands(np, seed: int) -> int:
             (pool / ds / "data.bin").write_bytes(body)
             e0 = cme.launches
             t0 = time.perf_counter()
-            rc, out = run_cli(["zfsbackup", "z", ds, "-m4"])
+            rc, out = run_cli(["zfsbackup", "z", ds, "-m4", "-tpu"])
             check(rc == 0 and f"@zpaqfranz0000000{k - 1}:" in out,
                   f"zfsbackup {k}: rc {rc}, {out!r}")
             check(cme.launches > e0, f"zfsbackup {k} did not launch the CM "
@@ -2095,7 +2111,8 @@ def zfs_commands(np, seed: int) -> int:
             body = body[:-4096] + rng.bytes(4096)
         d0 = cmd.launches
         t0 = time.perf_counter()
-        rc, out = run_cli(["zfsrestore", "z", ds, "-to", "tank/back"])
+        rc, out = run_cli(["zfsrestore", "z", ds, "-to", "tank/back",
+                           "-tpu"])
         dt = time.perf_counter() - t0
         check((rc, out) == (0, "2 streams received\n"),
               f"zfsrestore: rc {rc}, {out!r}")
@@ -2125,7 +2142,7 @@ def autotest_all() -> int:
 
     e0, d0 = cme.launches, cmd.launches
     t0 = time.perf_counter()
-    rc, out = run_cli(["autotest", "-all"])
+    rc, out = run_cli(["autotest", "-all", "-tpu"])
     check(rc == 0 and out.rstrip().endswith("autotest: PASS")
           and out.count("expected-failure=detected") == 3
           and out.count(": OK (") == 6, f"autotest -all: rc {rc}, {out!r}")
@@ -2134,6 +2151,124 @@ def autotest_all() -> int:
     log(f"autotest -all: PASS in {time.perf_counter() - t0:.2f} s, "
         f"{cme.launches - e0} encode and {cmd.launches - d0} decode "
         f"launches")
+    return 0
+
+
+def engine_gate(torch, np, runs, seed: int) -> int:
+    """The engine gate (``device_policy.py``): ``b`` through the CLI writes
+    the record of this card, printed; for each main-path level (one lane)
+    the gate's decision and predicted rates beside the ``a`` the main path
+    timed on the card and on the host engine, the decision equal to the
+    faster engine wherever the two differ by more than 2x (-m4 to the host
+    engine); an unforced ``a -m3`` of a 1.25 MiB text tree (one lane)
+    under the measured record (no CM encode launch where the record picks
+    the host engine) and under a record with the card 10x faster (CM
+    encode launches), the two archives identical (``now_date`` pinned);
+    an unforced ``t`` of that archive under the measured record, through
+    the SHA-1 kernel."""
+    import zpaqfranz_tpu_torch.jidac.add as add_mod
+    from zpaqfranz_tpu_torch import device_policy as dp
+    from zpaqfranz_tpu_torch.ops import cm_encode as cme, sha1
+    from zpaqfranz_tpu_torch.parallel import device_bench as db
+
+    path = pathlib.Path(dp.cal_path())
+    check(path.parent == WORK, f"the record {path} is not the smoke's own")
+    path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    rc, out = run_cli(["b"])
+    check(rc == 0, f"b: rc {rc}, {out[-2000:]!r}")
+    log(f"b (the engine gate's calibration) in "
+        f"{time.perf_counter() - t0:.1f} s:")
+    for line in out.splitlines():
+        log(f"  | {line}")
+    cal = dp.load_calibration()
+    check(cal.get("card") == torch.cuda.get_device_name(0),
+          f"b's record is of {cal.get('card')!r}")
+    for key in ("hash_device_MBps", "hash_host_MBps", "codec_device_MBps",
+                "codec_host_MBps"):
+        check(cal.get(key, 0) > 0, f"b recorded no {key}")
+    for m in db.CAL_METHODS:
+        got = dp.lane_rates(cal, m)
+        check(1 in got and len(got) == 2,
+              f"b's record of -m{m} holds lane counts {sorted(got)}")
+    log(f"engine gate: the record of {cal['card']} ({card_line()}), "
+        f"{db.CAL_LANE_BYTES:,} bytes a lane: {json.dumps(cal)}")
+
+    for r in sorted(runs, key=lambda r: r["level"]):
+        level = r["level"]
+        d = dp.decide("codec", r["bytes"], level, r["lanes"])
+        rates = dp.lane_rates(cal, level)
+        dev, host = rates[dp.judged_lanes(rates, r["lanes"])]
+        card_s, host_s = r["a_s"], r["a_host_s"]
+        log(f"-m{level}, {r['lanes']} lane(s), {r['bytes']:,} bytes: gate -> "
+            f"{'card' if d.device else 'host engine'}; predicted card "
+            f"{dev} MB/s, host engine {host} MB/s (card/host "
+            f"{dev / host:.4f}); measured a: card {card_s:.2f} s "
+            f"({r['cm_bytes'] / card_s / 1e6:.4f} MB/s of "
+            f"{r['cm_bytes']:,} modeled bytes), host engine {host_s:.2f} s "
+            f"({r['cm_bytes'] / host_s / 1e6:.4f} MB/s; card/host "
+            f"{host_s / card_s:.4f}); predicted/measured card/host "
+            f"{dev / host / (host_s / card_s):.3f}")
+        if max(card_s, host_s) > 2 * min(card_s, host_s):
+            check(d.device == (card_s < host_s),
+                  f"-m{level}: the gate picks the slower engine: {d.why}")
+        if level == "4":
+            check(not d.device, f"-m4 one lane not gated to the host "
+                  f"engine: {d.why}")
+
+    src = WORK / "gsrc"
+    text_corpus(np, src, GATE_BYTES, seed)
+    date = 20260203040506
+    real_now = add_mod.now_date
+    add_mod.now_date = lambda: date
+    measured = path.read_text()
+    fast = json.loads(measured)
+    for e in fast["methods"]["3"].values():
+        e["device_MBps"] = 10 * e["host_MBps"]
+    card_rec = WORK / "device_cal_card.json"
+    card_rec.write_text(json.dumps(fast))
+    arcs = {}
+    try:
+        for name, rec in (("measured", path), ("card", card_rec)):
+            os.environ[dp.CAL_ENV] = str(rec)
+            e0 = cme.launches
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc, out = run_cli(["a", f"g_{name}", "gsrc", "-m3"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = cme.launches - e0
+            check(rc == 0, f"a -m3 under the {name} record: rc {rc}, {out!r}")
+            gate = err.getvalue().strip()
+            log(f"unforced a -m3 of {GATE_BYTES:,} bytes under the {name} "
+                f"record: {dt:.2f} s, {launches} CM encode launches; {gate}")
+            if name == "card":
+                check(launches > 0, "the card-favouring record coded no "
+                      "lane on the card")
+            elif "-> host engine" in gate:
+                check(launches == 0, "the gate picked the host engine, "
+                      "yet the card coded")
+            else:
+                log("  (the measured record sends one -m3 lane to the card)")
+            arcs[name] = (WORK / f"g_{name}.zpaq").read_bytes()
+    finally:
+        add_mod.now_date = real_now
+        os.environ[dp.CAL_ENV] = str(path)
+    check(arcs["measured"] == arcs["card"], "the two unforced adds differ")
+    s0 = sha1.launches
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc, out = run_cli(["t", "g_measured"])
+    torch.cuda.synchronize()
+    check(rc == 0 and "all OK" in out, f"t: rc {rc}, {out!r}")
+    check(sha1.launches > s0, f"the unforced t did not launch the SHA-1 "
+          f"kernel: {err.getvalue().strip()}")
+    log(f"unforced t under the measured record: {out.strip()} in "
+        f"{time.perf_counter() - t0:.2f} s, {sha1.launches - s0} SHA-1 "
+        f"launches; {err.getvalue().strip()}")
+    shutil.rmtree(src)
     return 0
 
 
@@ -2148,6 +2283,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from zpaqfranz_tpu_torch import device_policy
+    # the engine gate's record is the smoke's own: neither a record left in
+    # ~/.cache nor one the ladder writes can steer a phase
+    os.environ[device_policy.CAL_ENV] = str(WORK / "device_cal.json")
     from zpaqfranz_tpu_torch.codec.methods import make_model
     from zpaqfranz_tpu_torch.device import resolve
     from zpaqfranz_tpu_torch.ops import build, cm_decode as cmd
@@ -2262,7 +2401,8 @@ def main() -> int:
         ("batched-hash path", lambda: batched_hash_path(
             torch, np, dev, lens, frag, crcs)),
         ("batched coders", lambda: batched_coders(torch, np, dev, 15)),
-        ("zfs commands", lambda: zfs_commands(np, 16)))
+        ("zfs commands", lambda: zfs_commands(np, 16)),
+        ("engine gate", lambda: engine_gate(torch, np, runs, 17)))
     counts: dict = {}
     try:
         for what, fn in paths:

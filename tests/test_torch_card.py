@@ -51,6 +51,14 @@ def card():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _own_record(tmp_path, monkeypatch):
+    """The engine gate's record in the test's own directory: no record
+    unless the test writes one (unforced runs take the card)."""
+    from zpaqfranz_tpu_torch import device_policy
+    monkeypatch.setenv(device_policy.CAL_ENV, str(tmp_path / "cal.json"))
+
+
 def test_sha1_kernel_matches_plain(card):
     rng = np.random.default_rng(7)
     chunks = [b"", b"abc", b"a" * 55, b"a" * 56, b"a" * 63, b"a" * 64,
@@ -641,6 +649,96 @@ def test_ladder_codec_stage_on_card(card):
     st = device_bench.run_ladder(ladder=[("codec", "3", 64, 512)])
     assert st["cm_3_L64"]["ok"]
     assert cme.launches == before[0] + 2 and cmd.launches == before[1] + 2
+
+
+def test_b_records_each_method_for_this_card(card, monkeypatch, capsys):
+    """``b``'s calibration at a small size: SHA-1 and -m3, -m4, -m5 at 1
+    and 4 lanes, each with the card's and the host engine's rate, in a
+    record of this card; the gate's decisions printed."""
+    import json
+
+    from zpaqfranz_tpu_torch import cli, device_policy
+
+    monkeypatch.setattr(device_bench, "CAL_LANE_BYTES", 4096)
+    monkeypatch.setattr(device_bench, "CAL_WIDE", 4)
+    before = (sha1.launches, cme.launches, cmd.launches)
+    assert cli.main(["b"]) == 0
+    assert sha1.launches > before[0] and cme.launches > before[1] \
+        and cmd.launches > before[2]
+    cal = device_policy.load_calibration()
+    print(json.dumps(cal))
+    assert cal["card"] == torch.cuda.get_device_name()
+    for key in ("hash_device_MBps", "hash_host_MBps", "codec_device_MBps",
+                "codec_host_MBps"):
+        assert cal[key] > 0
+    for m in device_bench.CAL_METHODS:
+        assert sorted(cal["methods"][m], key=int) == ["1", "4"]
+        for e in cal["methods"][m].values():
+            assert e["device_MBps"] > 0 and e["host_MBps"] > 0
+            assert e["lane_bytes"] == 4096
+    out = capsys.readouterr().out
+    assert out.count("  gate codec -m") == 9
+
+
+def test_unforced_add_follows_the_record_on_card(card, tmp_path,
+                                                 monkeypatch, capsys):
+    """Under a record that favours the host engine an unforced ``a -m3``
+    launches no CM kernel, under one that favours the card it codes on the
+    card, and both write the bytes of ``a -tpu``."""
+    import zpaqfranz_tpu_torch.jidac.add as add_mod
+    from zpaqfranz_tpu_torch import cli, device_policy
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(add_mod, "now_date", lambda: DATE)
+    monkeypatch.setattr(device_policy, "MIN_JOB_BYTES", 16)
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "a.txt").write_bytes(b"the gate on the card " * 300)
+    (src / "b.txt").write_bytes(b"per method and lane count " * 200)
+    assert cli.main(["a", "forced", "src", "-m3", "-tpu"]) == 0
+    want = (tmp_path / "forced.zpaq").read_bytes()
+    for name, dev_rate, launched in (("host", 0.1, False),
+                                     ("card", 40.0, True)):
+        device_policy.record_lanes("3", 1, device_MBps=dev_rate,
+                                   host_MBps=4.0, lane_bytes=4096)
+        before = cme.launches
+        assert cli.main(["a", name, "src", "-m3"]) == 0
+        assert (cme.launches > before) is launched
+        assert (tmp_path / f"{name}.zpaq").read_bytes() == want
+    err = capsys.readouterr().err
+    assert "-> host engine" in err and "-> card" in err
+
+
+@pytest.mark.parametrize("method", ["3", "4"])
+def test_encrypted_modeled_archive_on_card(card, tmp_path, monkeypatch,
+                                           method):
+    """An encrypted (``-key``) modeled archive: ``add`` -> ``extract`` ->
+    ``verify_archive`` on the card restore every byte, as the host engine
+    does."""
+    from zpaqfranz_tpu_torch.jidac.archive_io import ArchiveSource
+    from zpaqfranz_tpu_torch.jidac.index import read_archive_src
+
+    monkeypatch.chdir(tmp_path)
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(int(method))
+    (src / "a.txt").write_bytes(b"encrypted lanes on the card " * 500)
+    (src / "b.bin").write_bytes(rng.integers(0, 4, 9000,
+                                             dtype=np.uint8).tobytes())
+    want = {p.name: p.read_bytes() for p in src.iterdir()}
+    before = (cme.launches, cmd.launches, sha1.launches)
+    for name, kw in (("card", {"device": card}),
+                     ("host", {"use_device": False})):
+        arc = str(tmp_path / f"{name}.zpaq")
+        add(arc, ["src"], method=method, key="pw", date=DATE, **kw)
+        srcs = ArchiveSource.from_spec(arc, key="pw")
+        jd = read_archive_src(srcs)
+        extract(srcs, jd, str(tmp_path / f"out-{name}"), **kw)
+        assert {p.name: p.read_bytes()
+                for p in (tmp_path / f"out-{name}" / "src").iterdir()} == want
+        assert verify_archive(srcs, jd, **kw)[0] == len(jd.block)
+    assert cme.launches > before[0] and cmd.launches > before[1] \
+        and sha1.launches > before[2]
 
 
 # ---------------------------------------------------------------------------

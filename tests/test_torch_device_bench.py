@@ -2,7 +2,7 @@
 and its ``b`` command against the reference's: the same ladder and
 payloads, a codec stage through the plain CM versions (``device="cpu"``)
 whose coded lanes equal the reference engine's, and the host line of
-``b -notpu``."""
+``b -notpu``. The engine gate's record goes to each test's ``tmp_path``."""
 
 import dataclasses
 import re
@@ -16,9 +16,14 @@ from zpaqfranz_tpu.codec.methods import make_model as ref_make_model
 from zpaqfranz_tpu.parallel import device_bench as ref_bench
 from zpaqfranz_tpu.parallel.engine import parse_block_payload
 
-from zpaqfranz_tpu_torch import cli
+from zpaqfranz_tpu_torch import cli, device_policy
 from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme, sha1
 from zpaqfranz_tpu_torch.parallel import device_bench as db, engine
+
+
+@pytest.fixture(autouse=True)
+def _own_record(tmp_path, monkeypatch):
+    monkeypatch.setenv(device_policy.CAL_ENV, str(tmp_path / "cal.json"))
 
 
 def test_ladder_and_payloads_are_the_reference_ones():
@@ -81,10 +86,15 @@ def test_hash_stage_matches_the_host_engine(monkeypatch):
     assert sha1.launches == before
 
 
-def test_b_prints_the_host_line(capsys):
+def test_b_prints_the_host_line(capsys, monkeypatch):
+    # the engine gate's calibration after it, on the host engine at a
+    # small size (tests/test_torch_device_policy.py checks its record)
+    monkeypatch.setattr(db, "HASH_LANES", 8)
+    monkeypatch.setattr(db, "CAL_LANE_BYTES", 256)
+    monkeypatch.setattr(db, "CAL_WIDE", 2)
     assert cli.main(["b", "-notpu"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert len(out) == 1
+    assert out[1].startswith("engine gate calibration:")
     assert re.fullmatch(r"sha1 +[\d.]+ MB/s \| lz77 +[\d.]+ MB/s \| "
                         r"cm-encode +[\d.]+ MB/s \| tpu-franzomips \d+",
                         out[0])

@@ -20,10 +20,12 @@ Switches: -mN method, -to DIR, -until N|date, -fragment N, -threads N,
 -stat, -test, -tpu / -notpu, and for ``sum`` the hash name (-sha1
 default, -sha256, -md5, -xxhash64, ...).
 ``a``/``backup``/``zfsbackup``/``mysqldump`` at -m3..-m5, ``x``,
-``zfsrestore``, ``t``, ``p``, ``c``, ``autotest``, ``sum -sha1/-sha256``
-and the device stages of ``b`` run on the CUDA card
-unless ``-notpu`` asks for the host engine (``-tpu`` is accepted and
-changes nothing).
+``zfsrestore``, ``t``, ``p``, ``c``, ``autotest`` and ``sum -sha1/-sha256``
+take the CUDA card or the host engine by the engine gate
+(``device_policy``: the rates ``b`` recorded for this card, at the job's
+method and lane count; no record means the card); ``-tpu`` forces the
+card, ``-notpu`` the host engine. ``b`` records the host engine's rates,
+and unless ``-notpu`` the card's beside them.
 Exit codes follow the reference contract: 0 ok, 1 warnings, 2 errors.
 """
 
@@ -101,10 +103,15 @@ def _key(sw) -> Optional[str]:
     return None
 
 
-def _use_device(sw) -> bool:
-    """Device-lane selection: ``-notpu`` asks for the host engine, anything
-    else (``-tpu`` or no switch) for the CUDA card."""
-    return "notpu" not in sw
+def _use_device(sw) -> Optional[bool]:
+    """Engine selection: ``-notpu`` forces the host engine (False),
+    ``-tpu`` the CUDA card (True); no switch is None, the engine gate
+    (``device_policy.resolve``) of each job."""
+    if "notpu" in sw:
+        return False
+    if "tpu" in sw:
+        return True
+    return None
 
 
 def _load_index(archive: str, sw):
@@ -257,9 +264,14 @@ def cmd_test(archive, files, sw) -> int:
     from .jidac.extract import verify_archive
     data, jd = _load_index(archive, sw)
     t0 = time.time()
+    use_device = _use_device(sw)
+    if use_device is None and "ssd" in sw:
+        # -ssd: fast storage, so the gate decides without the job floor
+        from .device_policy import resolve
+        use_device = resolve(None, "hash", 0)
     nblocks, nfrags = verify_archive(
         data, jd, threads=int(sw.get("threads", ["0"])[0]),
-        use_device=_use_device(sw))
+        use_device=use_device)
     dt = time.time() - t0
     usize = sum(b.usize for b in jd.block)
     # the surviving data verified, but "all OK" must not hide what the scan
@@ -312,9 +324,9 @@ def cmd_paranoid(archive, files, sw, device=None) -> int:
     """Full paranoid test: decode every block, rebuild every file in memory,
     verify fragment SHA-1s plus per-file CRC-32/XXH64 (franz metadata).
     Blocks decode as CM lanes and fragments hash as SHA-1 lanes on
-    ``device`` (None = the CUDA card; "cpu" = the plain versions) unless
-    ``-notpu`` asks for the host engine; the file checksums run on the
-    host."""
+    ``device`` (None = the CUDA card; "cpu" = the plain versions) where
+    ``-tpu`` or the engine gate takes the card, else on the host engine;
+    the file checksums run on the host."""
     from . import native
     from .jidac.extract import decode_fragments, select_files
     data, jd = _load_index(archive, sw)
@@ -487,8 +499,8 @@ def cmd_dir(archive, files, sw) -> int:
 def cmd_backup(archive, files, sw) -> int:
     """Multipart backup: one new part per run plus a .txt index with
     per-part sizes and hashes (reference backup command semantics,
-    CHANGELOG.md:405-442). Modeled blocks are coded on the card unless
-    ``-notpu``, as ``a`` does."""
+    CHANGELOG.md:405-442). Modeled blocks take the card or the host engine
+    as in ``a``."""
     import glob
     from . import native
     from .jidac.add import add
@@ -615,7 +627,7 @@ def cmd_autotest(archive, files, sw) -> int:
     zpaqfranz's AUTOTEST/sha256.zpaq, whose file names are the SHA-256 of
     their contents; skipped without it and under ``-quick``) and round-trip
     every compression level on a small mixed tree. Levels 3-5 code and
-    decode on the card unless ``-notpu``, as ``a`` and ``x`` do; ``-all``
+    decode on the card or the host engine as ``a`` and ``x`` do; ``-all``
     adds the expected-failure cases (``_autotest_all``)."""
     import os
     import random
@@ -669,7 +681,8 @@ def cmd_autotest(archive, files, sw) -> int:
     return 2 if errors else 0
 
 
-def _autotest_all(td: str, src: pathlib.Path, use_device: bool) -> int:
+def _autotest_all(td: str, src: pathlib.Path,
+                  use_device: Optional[bool]) -> int:
     """Extended self-test (the reference's `autotest -all`,
     CHANGELOG.md:693-697): expected-FAILURE cases (corruption, wrong
     password, garbage input must be *detected*, not crash or silently pass)
@@ -832,7 +845,7 @@ SUM_ALGOS = ("sha1", "sha256", "sha3", "md5", "blake3", "whirlpool",
 SUM_BATCH_BYTES = 1 << 30
 
 
-def sum_lines(paths: Sequence, algo: str, use_device: bool = True,
+def sum_lines(paths: Sequence, algo: str, use_device: Optional[bool] = True,
               device=None) -> List[str]:
     """``DIGEST  path`` lines of ``sum`` for ``paths``. SHA-1 and SHA-256
     hash every file as one lane of the SHA-1 / SHA-256 lane kernel on
@@ -840,7 +853,12 @@ def sum_lines(paths: Sequence, algo: str, use_device: bool = True,
     plain PyTorch versions), in launches of up to ``SUM_BATCH_BYTES``; a
     file larger than a launch takes (``sha1.MAX_DATA``) goes to the native
     hasher, which gives the same digest. ``use_device=False`` and the
-    other algorithms use the native hashers."""
+    other algorithms use the native hashers; None asks the engine gate
+    (``device_policy``, kind "hash") on the files' bytes."""
+    if algo in ("sha1", "sha256") and use_device is None:
+        from .device_policy import resolve
+        use_device = resolve(None, "hash", sum(
+            pathlib.Path(p).stat().st_size for p in paths))
     if not (use_device and algo in ("sha1", "sha256")):
         return [f"{_hash_one(algo, pathlib.Path(p).read_bytes())}  {p}"
                 for p in paths]
@@ -903,12 +921,18 @@ def cmd_sum(archive, files, sw) -> int:
 
 def cmd_bench(archive, files, sw) -> int:
     """Quick host benchmark (the reference's 'b' franzomips analog), then
-    the device ladder's first two stages on the card unless ``-notpu``.
+    the engine gate's calibration (``device_bench.calibrate``): SHA-1 and
+    -m3, -m4 and -m5 at 1 lane and a wider lane count, on the card beside
+    the host engine, or with ``-notpu`` the host engine alone. Every stage
+    goes into the gate's record; then the record and, per method, the
+    gate's decision at 1, 8 and 64 lanes.
 
     Each host primitive is warmed once, then timed best-of-3 over a fixed
     byte budget."""
-    from . import native
+    import json
+    from . import device_policy, native
     from .codec.methods import make_model
+    from .parallel import device_bench as db
 
     def best_of(fn, reps: int = 3) -> float:
         fn()                         # warm caches / allocate tables
@@ -929,13 +953,22 @@ def cmd_bench(archive, files, sw) -> int:
     print(f"sha1 {mb / sha_t:7.1f} MB/s | lz77 {mb / lz_t:7.1f} MB/s | "
           f"cm-encode {0.03 / cm_t:7.2f} MB/s | "
           f"tpu-franzomips {int(mb / sha_t + mb / lz_t + 3000 * 0.03 / cm_t)}")
-    if not _use_device(sw):
-        return 0
-    from .parallel.device_bench import bootstrap_calibration, stage_line
-    print("device bench: SHA-1 lanes, then -m3 at 256 lanes of 4 KiB, on the "
-          "card beside the host engine", flush=True)
-    for name, st in bootstrap_calibration().items():
-        print(stage_line(name, st))
+    host_only = _use_device(sw) is False
+    print(f"engine gate calibration: SHA-1 lanes, then -m"
+          f"{', -m'.join(db.CAL_METHODS)} at 1 lane and up to "
+          f"{db.CAL_WIDE} lanes of {db.CAL_LANE_BYTES:,} bytes, "
+          + ("the host engine alone" if host_only
+             else "on the card beside the host engine"), flush=True)
+    t0 = time.perf_counter()
+    for name, st in db.calibrate(host_only=host_only).items():
+        print(db.stage_line(name, st), flush=True)
+    cal = device_policy.load_calibration()
+    print(f"record {device_policy.cal_path()} "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(cal)}")
+    for method in db.CAL_METHODS:
+        for lanes in (1, 8, 64):
+            d = device_policy.decide("codec", 0, method, lanes)
+            print(f"  gate {d.why}")
     return 0
 
 

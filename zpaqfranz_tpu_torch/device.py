@@ -1,9 +1,9 @@
 """Which device the port's lane kernels run on.
 
-``None`` means the CUDA card. There is no calibration gate, no deadline and
-no fallback: a caller who wants the plain PyTorch versions asks for
-``"cpu"``, and one who wants the host engine passes ``use_device=False`` to
-the archive functions.
+``None`` means the CUDA card. There is no deadline and no fallback: a
+caller who wants the plain PyTorch versions asks for ``"cpu"``, and one who
+wants the host engine passes ``use_device=False`` to the archive functions
+(``None`` there asks the engine gate, ``device_policy.py``).
 """
 
 from __future__ import annotations

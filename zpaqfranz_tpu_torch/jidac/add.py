@@ -9,9 +9,10 @@ call stack in SURVEY.md section 3.1):
   -> compress blocks -> append  c + d... + h... + i...  as one transaction.
 
 Modeled d blocks (-m3..-m5) are coded as lanes of the CUDA CM encode kernel
-(parallel/engine.py, ops/cm_encode.py) unless the caller asks for the host
-engine, which compresses blocks through the native engine on host threads;
-both write the same bytes. Every emitted block is a standard ZPAQ block, so
+(parallel/engine.py, ops/cm_encode.py) unless the caller, or for an
+unforced run the engine gate (device_policy.py), asks for the host engine,
+which compresses blocks through the native engine on host threads; both
+write the same bytes. Every emitted block is a standard ZPAQ block, so
 reference zpaqfranz can list/extract our archives.
 
 The pipeline is factored into stages (open_for_append / diff_index /
@@ -820,7 +821,7 @@ def add(archive: str, files: Sequence[str], method: str = "1",
         fragment_bits: int = 16, threads: int = 0,
         date: Optional[int] = None, summary: bool = False,
         key: Optional[str] = None,
-        use_device: bool = True,
+        use_device: Optional[bool] = True,
         device=None,
         index_path: Optional[str] = None,
         chunk: int = 0,
@@ -855,8 +856,10 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     use_device: code modeled d blocks (-m3..-m5) as lanes of the CM encode
     kernel on ``device`` (None = the CUDA card, which must be present;
     "cpu" = the kernel's plain PyTorch version). False = the host engine's
-    thread pool. Both write the same archive bytes; store-coded methods
-    (-m0..-m2) and streaming-format adds always use the host engine."""
+    thread pool. None = the engine gate (``device_policy``) at ``method``
+    with one lane per d block of the changed files' bytes. Both write the
+    same archive bytes; store-coded methods (-m0..-m2) and streaming-format
+    adds always use the host engine."""
     ctx = open_for_append(archive, key=key, notrim=notrim,
                           index_path=index_path)
     jd = ctx.jd
@@ -864,20 +867,24 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     model, pre = make_model(method)   # raises for not-yet-supported methods
     block_cap = min(1 << pre.block_bits, 1 << 24)  # >= threads jobs in flight
     streaming = method.lstrip().startswith("s")
-    if use_device and not streaming and model is not None and model.n > 0:
+    coded = not streaming and model is not None and model.n > 0
+    dev = None
+    if use_device and coded:
         from ..device import resolve
-        device = resolve(device)      # no card: raise before writing
-    else:
-        device = None
+        dev = resolve(device)         # no card: raise before writing
 
     ext = scan_files(files)
+    changed, deleted = diff_index(jd, ext, files)
+    est_bytes = sum(ext[n][1] for n in changed)
+    if use_device is None and coded and changed:
+        dev = _gated_device(model, method, est_bytes, block_cap,
+                            fragment_bits, device)
     date = pick_date(jd, date)
     journal = None
     if resume:
         journal = ResumeJournal.load_or_create(
             pathlib.Path(str(ctx.path) + ".resume"), date, method)
         date = journal.date          # pin packing to the original run
-    changed, deleted = diff_index(jd, ext, files)
     if not changed and not deleted:
         if journal is not None:
             journal.done()
@@ -939,7 +946,6 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     cx = _fut.ThreadPoolExecutor(max_workers=cx_threads)
     import collections
     d_futs: "collections.deque[_fut.Future]" = collections.deque()
-    est_bytes = sum(ext[n][1] for n in changed)
     spill = DBlockSpill(pathlib.Path(str(ctx.path) + ".spill"))
     try:
         def drain(block: bool) -> None:
@@ -968,10 +974,10 @@ def add(archive: str, files: Sequence[str], method: str = "1",
                 jobs.append(tail)
                 yield tail
 
-        if device is not None:
+        if dev is not None:
             from ..parallel.engine import encode_jidac_blocks
             for blk in encode_jidac_blocks(
-                    model, pre, planned_jobs(), date, _jdc_name, device,
+                    model, pre, planned_jobs(), date, _jdc_name, dev,
                     max_job_bytes(block_cap, fragment_bits), verify=verify,
                     journal=journal):
                 spill.append(blk)
@@ -993,6 +999,23 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     if journal is not None:
         journal.done()
     return len(changed), len(planner.new_ht), nbytes
+
+
+def _gated_device(model: Model, method: str, est_bytes: int, block_cap: int,
+                  fragment_bits: int, device):
+    """The engine gate's decision for an unforced add of ``est_bytes``
+    changed bytes at ``method``: one lane per ``block_cap`` bytes, at most
+    a launch's. Returns the card (``device``, resolved: raises without
+    one) or None (the host engine)."""
+    from .. import device_policy
+    from ..device import resolve
+    from ..parallel.engine import encode_lane_io, gate_lanes
+    lanes = gate_lanes(model, -(-est_bytes // block_cap), encode_lane_io(
+        model, max_job_bytes(block_cap, fragment_bits)), device)
+    if device_policy.resolve(None, "codec", est_bytes, method=method,
+                             lanes=lanes):
+        return resolve(device)
+    return None
 
 
 def _under_any(name: str, roots: Sequence[str]) -> bool:

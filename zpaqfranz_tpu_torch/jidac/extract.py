@@ -11,6 +11,7 @@ kernel (parallel/engine.py, ops/cm_decode.py) and ``verify_archive`` hashes
 every fragment in the CUDA SHA-1 lane kernel (ops/sha1.py). The host path
 (``use_device=False``) runs the block loop on a thread pool of native
 decodes; ctypes releases the GIL, giving real block-level parallelism.
+``use_device=None`` asks the engine gate (device_policy.py).
 """
 
 from __future__ import annotations
@@ -108,9 +109,35 @@ def select_files(jd: Jidac, patterns: Sequence[str]) -> List[str]:
     return sorted(out)
 
 
+def _decode_on_card(data, jd: Jidac, blocks: List[Block],
+                    use_device: Optional[bool], device) -> bool:
+    """``use_device`` when forced; for None the engine gate's decision
+    (``device_policy``) for decoding ``blocks``: its lanes are the modeled
+    blocks among them (at most a launch's), its method the recorded one
+    whose model coded most of them."""
+    if use_device is not None:
+        return use_device
+    from .. import device_policy
+    from ..codec.methods import make_model
+    from ..parallel.engine import OUT_SLACK, block_models, gate_lanes
+    models = [m for m in block_models(data, jd, blocks) if m.n > 0]
+    est = sum(b.usize for b in blocks)
+    if not models:
+        return device_policy.resolve(None, "codec", est, lanes=0)
+    heads = [m.header_bytes() for m in models]
+    top = max(set(heads), key=heads.count)
+    cal = device_policy.load_calibration()
+    method = next((m for m in sorted(cal.get("methods", {}))
+                   if make_model(m)[0].header_bytes() == top), None)
+    lane_io = max(b.bsize + b.usize for b in blocks) + OUT_SLACK
+    lanes = gate_lanes(models[heads.index(top)], len(models), lane_io, device)
+    return device_policy.resolve(None, "codec", est, method=method,
+                                 lanes=lanes)
+
+
 def extract(data, jd: Jidac, to_dir: str,
             patterns: Sequence[str] = (), threads: int = 0,
-            dry_run: bool = False, use_device: bool = True,
+            dry_run: bool = False, use_device: Optional[bool] = True,
             device=None, progress=None, rename=None) -> Tuple[int, int]:
     """Extract selected files under ``to_dir``. Returns (files, bytes).
 
@@ -118,6 +145,7 @@ def extract(data, jd: Jidac, to_dir: str,
     ``use_device``: decode modeled blocks as lanes of the CM decode kernel
     on ``device`` (None = the CUDA card, which must be present; "cpu" = the
     kernel's plain PyTorch version). False = the host engine's thread pool.
+    None = the engine gate (``device_policy``) on the needed blocks.
     ``rename``: optional name->name mapping applied to output paths (the
     reference's -find/-replace substitution, CHANGELOG.md v60 t/x)."""
     data = as_source(data)
@@ -136,7 +164,7 @@ def extract(data, jd: Jidac, to_dir: str,
     frag_bytes: Dict[int, bytes] = {}
     threads = threads or min(32, (os.cpu_count() or 4))
 
-    if use_device:
+    if _decode_on_card(data, jd, blocks, use_device, device):
         from ..device import resolve
         from ..parallel.engine import decode_jidac_blocks
         decoded = decode_jidac_blocks(data, jd, blocks, resolve(device))
@@ -181,17 +209,22 @@ def extract(data, jd: Jidac, to_dir: str,
 
 
 def verify_archive(data, jd: Jidac, threads: int = 0,
-                   use_device: bool = True, device=None) -> Tuple[int, int]:
+                   use_device: Optional[bool] = True,
+                   device=None) -> Tuple[int, int]:
     """Integrity test: decode every block, verify every fragment SHA-1
     (the reference 't' command's phase 1). Returns (blocks, fragments).
 
     ``use_device`` hashes every fragment in the SHA-1 lane kernel on
     ``device`` (None = the CUDA card; "cpu" = the plain PyTorch version)
     after a host decode, one launch per ``VERIFY_BATCH_BYTES`` of whole
-    blocks; False = native decode+hash per block on host threads."""
+    blocks; False = native decode+hash per block on host threads; None =
+    the engine gate (``device_policy``, kind "hash") on the archive's
+    bytes."""
+    from .. import device_policy
     data = as_source(data)
     threads = threads or min(32, (os.cpu_count() or 4))
-    if use_device:
+    if device_policy.resolve(use_device, "hash",
+                             sum(b.usize for b in jd.block)):
         from ..device import resolve
         return _verify_archive_device(data, jd, threads, resolve(device))
     nfrag = 0
@@ -303,7 +336,7 @@ def _verify_archive_device(data, jd: Jidac, threads: int,
     return len(jd.block), nfrag
 
 
-def decode_fragments(data, jd: Jidac, use_device: bool = True,
+def decode_fragments(data, jd: Jidac, use_device: Optional[bool] = True,
                      device=None) -> Dict[int, bytes]:
     """Every block of the archive decoded and cut into its fragments, each
     fragment's SHA-1 checked: {fragment id: bytes} (``p`` and ``c``).
@@ -314,10 +347,10 @@ def decode_fragments(data, jd: Jidac, use_device: bool = True,
     the SHA-1 lane kernel, one launch per batch of whole blocks of at most
     ``VERIFY_BATCH_BYTES``, as ``verify_archive`` does. False = the host
     engine, block by block, with the native SHA-1, as the reference's
-    ``p``."""
+    ``p``. None = the engine gate (``device_policy``), as ``extract``."""
     data = as_source(data)
     frag_bytes: Dict[int, bytes] = {}
-    if not use_device:
+    if not _decode_on_card(data, jd, jd.block, use_device, device):
         for blk in jd.block:
             frag_bytes.update(_verify_fragments(jd, blk,
                                                 _decode_block(data, blk)))

@@ -16,7 +16,8 @@ suite points it at a shim; real hosts need the actual utility).
 
 A copy of the reference package's ``jidac/zfs.py`` over the port's ``add``
 and ``extract``: a modeled method codes and decodes its d blocks on the card
-unless the caller passes ``use_device=False`` (the host engine) or
+unless the caller passes ``use_device=False`` (the host engine),
+``use_device=None`` (the engine gate, ``device_policy``) or
 ``device="cpu"`` (the plain versions).
 """
 
@@ -81,7 +82,8 @@ def _stored_streams(jd, dataset: str) -> List[Tuple[int, str, str]]:
 
 def zfs_backup(archive: str, dataset: str, key: Optional[str] = None,
                method: str = "1", full: bool = False,
-               use_device: bool = True, device=None) -> Tuple[str, int]:
+               use_device: Optional[bool] = True,
+               device=None) -> Tuple[str, int]:
     """Snapshot the dataset and append its send stream to the archive.
 
     Incremental (``zfs send -i``) against the newest previous zpaqfranz
@@ -130,7 +132,7 @@ def zfs_backup(archive: str, dataset: str, key: Optional[str] = None,
 
 
 def zfs_restore(archive: str, dataset: str, to: Optional[str] = None,
-                key: Optional[str] = None, use_device: bool = True,
+                key: Optional[str] = None, use_device: Optional[bool] = True,
                 device=None) -> int:
     """Replay the archive's send streams through ``zfs receive``.
 

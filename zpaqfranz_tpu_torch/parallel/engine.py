@@ -54,6 +54,27 @@ def lanes_per_launch(model: Model, lane_io: int, device: torch.device
     return fit
 
 
+def gate_lanes(model: Model, lanes: int, lane_io: int, device=None) -> int:
+    """The lanes in flight of a job of ``lanes`` modeled blocks, as the
+    engine gate (``device_policy``) counts them: at most
+    ``lanes_per_launch`` on ``device`` (None = the card) where a card is
+    present."""
+    if not torch.cuda.is_available() or (
+            device is not None and torch.device(device).type != "cuda"):
+        return lanes
+    from ..device import resolve
+    return min(lanes, lanes_per_launch(model, lane_io, resolve(device)))
+
+
+def encode_lane_io(model: Model, max_job: int) -> int:
+    """Bytes of input and output a lane of an encode launch holds for a job
+    of at most ``max_job`` raw bytes (``lanes_per_launch``'s ``lane_io``):
+    the selector prefix and payload, and the coded stream's cap."""
+    blob = model.pcomp_bytes()
+    max_payload = 1 + (len(blob) if blob else 0) + max_job + OUT_SLACK
+    return max_payload + cme.lane_cap(max_payload)
+
+
 def decode_streams(model: Model, streams: Sequence[bytes],
                    caps: Sequence[int], device: torch.device,
                    max_hcomp_steps: Optional[int] = None) -> List[bytes]:
@@ -100,6 +121,36 @@ def parse_block_payload(data: bytes, offset: int
     return model, r.pos, bytes(r.data[r.pos:])
 
 
+#: bytes read from a block's start to parse its model: the header (at most
+#: 65,537 bytes) and the first segment's name and comment
+HEADER_READ = 1 << 17
+
+
+def _block_sizes(src, jd, blocks) -> List[int]:
+    """Each block's bytes in ``src``: ``bsize`` from the h block, or for a
+    streaming-format block (``bsize`` 0, no stored size) up to the next
+    block of ``jd`` or ``blocks`` in the archive, or to its end."""
+    starts = sorted({b.offset for b in jd.block} | {b.offset for b in blocks})
+    out = []
+    for blk in blocks:
+        n = blk.bsize
+        if not n:
+            k = bisect.bisect_right(starts, blk.offset)
+            n = (starts[k] if k < len(starts) else src.size()) - blk.offset
+        out.append(n)
+    return out
+
+
+def block_models(data, jd, blocks) -> List[Model]:
+    """The model each of ``blocks`` was coded with, parsed from the first
+    ``HEADER_READ`` bytes of the block (``model.n == 0``: a store block)."""
+    from ..jidac.archive_io import as_source
+    src = as_source(data)
+    return [parse_block_payload(src.read_range(blk.offset,
+                                               min(n, HEADER_READ)), 0)[0]
+            for blk, n in zip(blocks, _block_sizes(src, jd, blocks))]
+
+
 def decode_jidac_blocks(data, jd, blocks, device: torch.device
                         ) -> Dict[int, bytes]:
     """Decode jidac d blocks -> {block.offset: concatenated fragment bytes}.
@@ -112,15 +163,10 @@ def decode_jidac_blocks(data, jd, blocks, device: torch.device
     grouped by model header; store blocks decode in the host engine."""
     from ..jidac.archive_io import as_source
     src = as_source(data)
-    starts = sorted({b.offset for b in jd.block} | {b.offset for b in blocks})
     groups: Dict[bytes, List] = {}
     host_blocks = []
     metas = {}
-    for blk in blocks:
-        n = blk.bsize
-        if not n:
-            k = bisect.bisect_right(starts, blk.offset)
-            n = (starts[k] if k < len(starts) else src.size()) - blk.offset
+    for blk, n in zip(blocks, _block_sizes(src, jd, blocks)):
         model, _, payload = parse_block_payload(src.read_range(blk.offset, n),
                                                 0)
         metas[blk.offset] = (model, payload)
@@ -257,9 +303,7 @@ def encode_jidac_blocks(model: Model, pre, jobs: Iterable, date: int,
     from ..jidac.add import _STORE_MODEL, job_bytes, verify_payload
     blob = model.pcomp_bytes()
     prefix = (b"\x01" + blob) if blob else b"\x00"
-    max_payload = len(prefix) + max_job + OUT_SLACK
-    step = lanes_per_launch(model, max_payload + cme.lane_cap(max_payload),
-                            device)
+    step = lanes_per_launch(model, encode_lane_io(model, max_job), device)
     pending: List[Tuple[object, Optional[bytes], int]] = []
     payloads: List[bytes] = []
 
