@@ -82,8 +82,16 @@ at -m3 x 256 and x 1024 lanes and "4.0" x 8 and x 32, every lane equal to
 the host engine's coded stream and decoded back to its payload). Every
 kernel must have launched on its paths: each path runs with the launch
 counts set to 0 just before it and read just after, and the JSON line
-sums them. Scratch files go to
-``build/smoke/`` and are removed at the end.
+sums them. Last, ``sanitize``: every CUDA entry point at its exact
+allocation bounds (``experiments/sanitize.py``): the matrix's cases
+recorded on the normal path, each held against its plain version, then
+every launch replayed in a process that never imports torch, each buffer
+exactly its tensor's bytes against an unmapped granule after its end and
+then before its start, every output byte-equal to the recording, one line
+per entry point; compute-sanitizer's memcheck and racecheck on the
+smallest SHA-1 and CM decode cases where the tool can check the card (on
+the H100 machine it cannot, and the phase says so). Scratch files go to
+``build/smoke/`` and ``build/smoke_sanitize/`` and are removed at the end.
 
 Output: per-phase lines, then one JSON line of kernel measurements (in the
 order: SHA-1, SHA-256, CM decode, CM encode, CRC-32, the specialised HCOMP
@@ -101,7 +109,9 @@ import io
 import json
 import os
 import pathlib
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -109,6 +119,12 @@ import time
 T0 = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "build" / "smoke"
+# the sanitize phase's record of the exact-bounds matrix
+SAN_WORK = ROOT / "build" / "smoke_sanitize"
+# its compute-sanitizer runs, when the tool can check this card: the
+# smallest SHA-1 and CM decode cases
+SAN_TOOL_CASES = ("sha1 1 lanes", "cm_decode -m3, HCOMP specialised: one "
+                  "lane")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and INT32 issue rate
 # = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (Hopper white paper).
@@ -274,33 +290,6 @@ FIRST_MICRO_MS = {"gather": 1.5186, "onehot": 3.2478, "selwrite": 49.216,
                 "lane_loop": 0.0235, "dma": 0.0126, "lane_rw": 1.2810,
                 "lut": 0.0386}
 
-ALL_COMPONENTS_CFG = """
-comp 9 16 0 0 10
-  0 const 160
-  1 cm 9 4
-  2 icm 5
-  3 isse 5 2
-  4 match 8 8
-  5 avg 3 4 128
-  6 mix2 4 5 1 24 255
-  7 mix 4 0 6 24 255
-  8 sse 5 7 32 255
-  9 mix2 4 8 7 24 255
-hcomp
-  c-- *c=a a+= 255 d=a *d=c
-  d= 1 *d=0 b=c a=*b hashd
-  d= 2 *d=0 a=*b hashd
-  d= 3 b=c a=*d d++ hash *d=a
-  d= 4 a=*d a*= 24 a+=*c a++ *d=a
-  d= 6 *d=0 b=c a=*b hashd
-  d= 7 *d=0 a=c a&= 3 hashd
-  d= 8 *d=0 a=*b hashd
-  d= 9 *d=0
-  halt
-post 0 end
-"""
-
-
 class SmokeError(RuntimeError):
     pass
 
@@ -345,21 +334,25 @@ def wall_ms(torch, fn) -> float:
 
 
 def kernel_ms(torch, fn, args, kernel: str, reps: int = 5,
-              tries: int = 3) -> float:
-    """Mean device milliseconds of the CUDA kernel named ``kernel`` per
-    launch, over ``reps`` calls of ``fn(*args)`` after a warm-up, from
-    ``torch.profiler``: the kernel alone, without the wrapper's checks and
-    allocations around it. Fails if the profiler saw another kernel of that
-    name or more launches than calls. Its trace may drop records (PERF.md
-    §7): the mean is over the launches it saw, a profile that saw none is
-    taken again, and after ``tries`` such profiles the kernel is timed
-    with CUDA events around the whole calls instead (the wrapper's host
-    work included), which the log says."""
+              profiles: int = 3, tries: int = 3) -> float:
+    """Device milliseconds of the CUDA kernel named ``kernel`` per launch,
+    from ``torch.profiler``: the median, over ``profiles`` profiles of
+    ``reps`` calls of ``fn(*args)`` after a warm-up, of each profile's mean
+    over the launches it saw; the kernel alone, without the wrapper's
+    checks and allocations around it. One profile can read far off (PERF.md
+    §6, PR 12: 0.0043 ms for a kernel of 0.0090 ms), which the median of
+    three leaves out. Fails if the profiler saw another
+    kernel of that name or more launches than calls. Its trace may drop
+    records: a profile that saw none is taken again, and after ``tries``
+    such profiles with none seen the kernel is timed with CUDA events
+    around the whole calls instead (the wrapper's host work included),
+    which the log says."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
     torch.cuda.synchronize()
-    for _ in range(tries):
+    means, empty = [], 0
+    while len(means) < profiles and empty < tries:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -371,7 +364,11 @@ def kernel_ms(torch, fn, args, kernel: str, reps: int = 5,
               f"the profiler saw {[(e.key, e.count) for e in hits]} for "
               f"{kernel}, want at most {reps} launches")
         if hits:
-            return hits[0].device_time_total / hits[0].count / 1e3
+            means.append(hits[0].device_time_total / hits[0].count / 1e3)
+        else:
+            empty += 1
+    if means:
+        return statistics.median(means)
     log(f"  (the profiler saw no launch of {kernel} in {tries} profiles: "
         f"timed with CUDA events around the calls)")
     return cuda_ms(torch, lambda: fn(*args), reps)
@@ -795,15 +792,6 @@ def check_crc(torch, np, dev, seed: int, lens, frag) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}, want
 
 
-def coded_stream(model, payload: bytes) -> bytes:
-    """The native engine's coded segment of ``payload`` as the decoder
-    takes it: the bytes after the segment header, tail included."""
-    from zpaqfranz_tpu_torch import native
-    from zpaqfranz_tpu_torch.parallel.engine import parse_block_payload
-    block = native.compress_block(model, payload, b"t", b"c")
-    return parse_block_payload(block, 0)[2]
-
-
 def lane_payloads(np, rng, sizes) -> list:
     words = [b"the", b"cat", b"sat", b"on", b"mat", b"zpaq", b"lane",
              b"block", b"1234", b"\n", b"context", b"mixing"]
@@ -876,7 +864,8 @@ def cm_models() -> dict:
     """The CM kernels' check models: -m3, -m4 and -m5 at 1 MiB blocks
     ("4.0", "5.0"), all component types, and the main path's -m4 and -m5
     (16 MiB blocks)."""
-    from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.codec.methods import (ALL_COMPONENTS_CFG,
+                                                   make_model)
     from zpaqfranz_tpu_torch.zpaql.compiler import compile_config
 
     models = {m: make_model(m)[0] for m in ("3", "4.0", "5.0", "4", "5")}
@@ -945,17 +934,12 @@ def placement_line(model, name: str) -> str:
             f"lanes/block, {4 * pi.lane_words} bytes per lane with H)")
 
 
-def selector(model) -> bytes:
-    """The selector prefix a coded payload starts with: 1 + the PCOMP
-    program when the model has one, else 0."""
-    blob = model.pcomp_bytes()
-    return b"\x01" + blob if blob else b"\x00"
-
-
 def check_cm(torch, np, dev, seed: int) -> dict:
     from zpaqfranz_tpu_torch import native
     from zpaqfranz_tpu_torch.ops import cm_decode as cmd
-    from zpaqfranz_tpu_torch.parallel.engine import parse_block_payload
+    from zpaqfranz_tpu_torch.parallel.engine import (coded_stream,
+                                                     parse_block_payload,
+                                                     selector)
 
     rng = np.random.default_rng(seed)
     models = cm_models()
@@ -1035,6 +1019,7 @@ def check_cm_encode(torch, np, dev, seed: int, steps: dict) -> dict:
     """Hold the CM encode kernel against its plain version and the native
     engine's coded segments; time it on the -m4 native-check launch."""
     from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
+    from zpaqfranz_tpu_torch.parallel.engine import coded_stream, selector
 
     rng = np.random.default_rng(seed)
     models = cm_models()
@@ -1129,6 +1114,7 @@ def profile_cm(torch, np, dev, seed: int) -> dict:
     from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
     from zpaqfranz_tpu_torch.ops.cm_model import PROFILE, lanes_to_bytes
     from zpaqfranz_tpu_torch.ops.hcomp_fast import try_compile
+    from zpaqfranz_tpu_torch.parallel.engine import coded_stream, selector
 
     rng = np.random.default_rng(seed)
     models = cm_models()
@@ -1708,12 +1694,13 @@ def sharded_lanes(torch, np, dev, seed: int) -> int:
     from zpaqfranz_tpu_torch.parallel import dist, engine
 
     model = make_model("4")[0]
-    sel = selector(model)
+    sel = engine.selector(model)
     rng = np.random.default_rng(seed)
     pays = [sel + p for p in lane_payloads(
         np, rng, [SHARD_LANE_BYTES] * SHARD_LANES)]
     single = engine.encode_streams(model, pays, dev)
-    check(single == [coded_stream(model, p[len(sel):])[:-6] for p in pays],
+    check(single == [engine.coded_stream(model, p[len(sel):])[:-6]
+                     for p in pays],
           "-m4 lanes: the card's encode differs from the host engine's")
     nbytes = sum(map(len, pays))
     for k in SHARD_KS:
@@ -1904,6 +1891,7 @@ def device_bwt(torch, np, dev, seed: int) -> None:
     the share of ``torch.sort`` (CUDA events around each sort)."""
     from zpaqfranz_tpu_torch import native
     from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.parallel.engine import selector
     from zpaqfranz_tpu_torch.pre import bwt_device
 
     rng = np.random.default_rng(seed)
@@ -1968,11 +1956,13 @@ def batched_coders(torch, np, dev, seed: int) -> int:
     at -m4 on the card: the host engine's coded segments, decoded back to
     the payloads; then ``BatchedPredictor`` per bit on the card, equal to
     the scalar predictor."""
-    from zpaqfranz_tpu_torch.codec.methods import make_model
+    from zpaqfranz_tpu_torch.codec.methods import (ALL_COMPONENTS_CFG,
+                                                   make_model)
     from zpaqfranz_tpu_torch.models.predictor import Predictor
     from zpaqfranz_tpu_torch.ops.coder_batched import (BatchedDecoder,
                                                        BatchedEncoder)
     from zpaqfranz_tpu_torch.ops.predictor_batched import BatchedPredictor
+    from zpaqfranz_tpu_torch.parallel.engine import coded_stream, selector
     from zpaqfranz_tpu_torch.zpaql.compiler import compile_config
 
     model = make_model("4")[0]
@@ -2272,6 +2262,71 @@ def engine_gate(torch, np, runs, seed: int) -> int:
     return 0
 
 
+def sanitize_phase() -> None:
+    """Hold every CUDA entry point to its exact allocation bounds
+    (``experiments/sanitize.py``): record the matrix's cases on the normal
+    path (each held against its plain version), then replay every launch
+    in a process that never imports torch, each buffer exactly its
+    tensor's bytes against an unmapped granule, after its end and then
+    before its start, every output byte-equal to the recording. One line
+    per entry point. compute-sanitizer's memcheck and racecheck run the
+    smallest SHA-1 and CM decode cases too, where the tool can check this
+    card; where it cannot, the phase says why. Any fault fails the
+    smoke."""
+    from zpaqfranz_tpu_torch.experiments import sanitize as sz
+
+    if SAN_WORK.exists():
+        shutil.rmtree(SAN_WORK)
+    try:
+        t0 = time.perf_counter()
+        wide = []          # the 16 MiB-block lanes' recording seconds
+        counts = sz.record(SAN_WORK / "matrix", log=lambda m: wide.extend(
+            float(t) for t in re.findall(r"16 MiB blocks.*\(([\d.]+) s\)$",
+                                         m)))
+        rec_s = time.perf_counter() - t0
+        rec_mb = sum(f.stat().st_size for f in (SAN_WORK / "matrix").rglob(
+            "*") if f.is_file()) / 1e6
+        rc, _, sec, text = sz.run_replay(SAN_WORK / "matrix",
+                                         ("end", "start"), timeout=900)
+        check(rc == 0, f"the guard replay failed:\n{sz.tail(text, 30)}")
+        seen: dict = {}
+        for ln in text.splitlines():
+            m = re.match(r"replay \[guard (\w+)\] (\w+): (\d+) cases, "
+                         r"(\d+) launches, 0 faults, ([\d.]+) s, at most "
+                         r"(\d+) B", ln)
+            if m:
+                seen.setdefault(m[2], {})[m[1]] = (int(m[3]), int(m[4]),
+                                                  float(m[5]), int(m[6]))
+        check(set(seen) == set(sz.launch_symbols()) == set(counts)
+              and all(set(v) == {"end", "start"} for v in seen.values()),
+              f"the guard replay missed entry points: {sorted(seen)}")
+        for sym, v in seen.items():
+            (cases, n, e_s, slack), (_, _, s_s, _) = v["end"], v["start"]
+            check(cases == counts[sym], f"{sym}: {cases} cases replayed of "
+                  f"{counts[sym]}")
+            log(f"sanitize {sym}: {cases} cases ({n} launches), 0 faults in "
+                f"both guard passes, {e_s + s_s:.3f} s (end {e_s:.3f}, "
+                f"start {s_s:.3f}), at most {slack} B after a tensor's end")
+        log(f"sanitize: recorded {sum(counts.values())} cases in "
+            f"{rec_s:.1f} s ({len(wide)} 16 MiB-block lanes {sum(wide):.1f} "
+            f"s), {rec_mb:.1f} MB on disk; replayed both guard passes in "
+            f"{sec:.1f} s")
+        for tool in ("memcheck", "racecheck"):
+            rc, errors, sec, text = sz.run_replay(
+                SAN_WORK / "matrix", (), tool, SAN_TOOL_CASES, timeout=60)
+            gone = sz.UNAVAILABLE.search(text)
+            if gone:
+                log(f"sanitize {tool}: cannot check this card "
+                    f"({gone.group(1)}); the guard passes stand in")
+                continue
+            check(rc == 0 and errors == 0, f"{tool} reported {errors} "
+                  f"errors (exit {rc}):\n{sz.tail(text, 30)}")
+            log(f"sanitize {tool}: {len(SAN_TOOL_CASES)} cases, 0 errors, "
+                f"{sec:.1f} s")
+    finally:
+        shutil.rmtree(SAN_WORK, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / "zpaqfranz_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2415,6 +2470,9 @@ def main() -> int:
     micro_counts = measurement_path(torch, dev)
     log(f"  (measurement path took {time.perf_counter() - t0:.1f} s)")
     counts.update({name: micro_counts[kind] for name, _, kind, _ in MICRO})
+    t0 = time.perf_counter()
+    sanitize_phase()
+    log(f"  (sanitize phase took {time.perf_counter() - t0:.1f} s)")
     for k in kernels:
         k["launches"] = counts[k["name"]]
         check(k["launches"] > 0, f"{k['name']} never launched on its path")

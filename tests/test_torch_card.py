@@ -21,10 +21,11 @@ from zpaqfranz_tpu.jidac.index import read_archive as ref_read
 from zpaqfranz_tpu.parallel import engine as ref_engine
 from zpaqfranz_tpu.zpaql.compiler import compile_config as ref_compile
 
-from chip_smoke import ALL_COMPONENTS_CFG
 from zpaqfranz_tpu_torch import convert
+from zpaqfranz_tpu_torch.codec.methods import ALL_COMPONENTS_CFG
 from zpaqfranz_tpu_torch.experiments import mb_access as mb
 from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
+from zpaqfranz_tpu_torch.experiments import sanitize as sz
 from zpaqfranz_tpu_torch.jidac.add import add
 from zpaqfranz_tpu_torch.jidac.extract import extract, verify_archive
 from zpaqfranz_tpu_torch.jidac.index import read_archive
@@ -1154,3 +1155,47 @@ def test_batched_coders_on_card(card):
                                              max(map(len, lanes)) + 8)
     assert [bytes(dec[i, :lens[i]]) for i in range(3)] == lanes
     assert (cme.launches, cmd.launches) == (before[0] + 1, before[1] + 1)
+
+
+# ---------------------------------------------------------------------------
+# exact allocation bounds (experiments/sanitize.py)
+
+
+@pytest.fixture(scope="module")
+def sanitize_record(tmp_path_factory):
+    """The exact-bounds matrix recorded on the card once for the module:
+    (directory, symbol -> cases)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    root = tmp_path_factory.mktemp("sanitize")
+    return root, sz.record(root, log=lambda m: None)
+
+
+@pytest.mark.parametrize("symbol", sorted(sz.launch_symbols()))
+def test_exact_bounds_guard_replay(card, sanitize_record, symbol):
+    """Every recorded launch of ``symbol`` replayed in a process that
+    never imports torch, each buffer exactly its tensor's bytes against an
+    unmapped granule after its end, then before its start: no fault, and
+    every tensor byte-equal to the normal launch's."""
+    root, counts = sanitize_record
+    rc, _, _, text = sz.run_replay(root, ("end", "start"), only=(symbol,),
+                                   timeout=600)
+    assert rc == 0, sz.tail(text, 30)
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("replay [guard") and f"] {symbol}:" in ln]
+    assert len(lines) == 2, text
+    assert all(f" {counts[symbol]} cases," in ln for ln in lines), lines
+
+
+def test_guard_replay_catches_the_controls(card, tmp_path):
+    """The guard passes fault on a kernel that writes one byte past its
+    buffer's end and one byte before its start."""
+    lib = tmp_path / "libcontrols.so"
+    sz.nvcc(sz.CONTROLS_CU, lib, shared=True)
+    sz.control_records(tmp_path, str(lib))
+    for name, where in (("overrun", "end"), ("underrun", "start")):
+        rc, _, _, text = sz.run_replay(tmp_path / name, (where,), timeout=120)
+        assert rc != 0 and "faulted" in text, (name, sz.tail(text))
+    # a plain allocation of 48 bytes does not fault on the 49th
+    rc, _, _, text = sz.run_replay(tmp_path / "overrun", (), timeout=120)
+    assert rc == 0, sz.tail(text)

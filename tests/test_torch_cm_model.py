@@ -7,8 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ALL_COMPONENTS_CFG
-from zpaqfranz_tpu_torch.codec.methods import make_model
+from zpaqfranz_tpu_torch.codec.methods import ALL_COMPONENTS_CFG, make_model
 from zpaqfranz_tpu_torch.models import tables as T
 from zpaqfranz_tpu_torch.ops import cm_model as cm
 from zpaqfranz_tpu_torch.zpaql.compiler import compile_config

@@ -33,6 +33,35 @@ from ..zpaql.compiler import compile_config
 from ..zpaql.header import Model
 
 
+#: a model with every component type (CONST, CM, ICM, ISSE, MATCH, AVG,
+#: MIX2, MIX, SSE) and an HCOMP program for each context
+ALL_COMPONENTS_CFG = """
+comp 9 16 0 0 10
+  0 const 160
+  1 cm 9 4
+  2 icm 5
+  3 isse 5 2
+  4 match 8 8
+  5 avg 3 4 128
+  6 mix2 4 5 1 24 255
+  7 mix 4 0 6 24 255
+  8 sse 5 7 32 255
+  9 mix2 4 8 7 24 255
+hcomp
+  c-- *c=a a+= 255 d=a *d=c
+  d= 1 *d=0 b=c a=*b hashd
+  d= 2 *d=0 a=*b hashd
+  d= 3 b=c a=*d d++ hash *d=a
+  d= 4 a=*d a*= 24 a+=*c a++ *d=a
+  d= 6 *d=0 b=c a=*b hashd
+  d= 7 *d=0 a=c a&= 3 hashd
+  d= 8 *d=0 a=*b hashd
+  d= 9 *d=0
+  halt
+post 0 end
+"""
+
+
 class MethodError(ValueError):
     pass
 

@@ -285,7 +285,8 @@ def _column_kernel(kind: str, plain: Callable, S: int, dtype: torch.dtype
         out = torch.empty((1, n), dtype=torch.int32, device=dev)
         build.call("mb_access", f"mb_{kind}_launch", dev, tab, idx, out, S,
                    n, iters, _ESIZE[dtype],
-                   *column_plan(kind, S, _ESIZE[dtype], n), *mod[1:])
+                   *column_plan(kind, S, _ESIZE[dtype], n), *mod[1:],
+                   written=(out,))
         launches[kind] += 1
         return out
     run.plain = lambda tab, idx: plain(tab, idx, iters)

@@ -114,7 +114,7 @@ def lane_rw_probe(tab: torch.Tensor, iters: int) -> torch.Tensor:
     work = tab.clone()
     out = torch.empty((1, 1), dtype=torch.int32, device=dev)
     build.call("mb_vmem_probe", "mb_lane_rw_launch", dev, work, out, n, sw, W,
-               iters, *mod_plan(sw - W)[1:])
+               iters, *mod_plan(sw - W)[1:], written=(out,))
     launches["lane_rw"] += 1
     return out
 
@@ -132,9 +132,38 @@ def lut_probe(lut: torch.Tensor, lanes: int, iters: int) -> torch.Tensor:
         return lut_plain(lut, lanes, iters)
     out = torch.empty((1, lanes), dtype=torch.int32, device=dev)
     build.call("mb_vmem_probe", "mb_lut_launch", dev, lut, out, n, lanes,
-               iters * 8, *lut_plan(n, lanes), *mod_plan(n)[1:])
+               iters * 8, *lut_plan(n, lanes), *mod_plan(n)[1:],
+               written=(out,))
     launches["lut"] += 1
     return out
+
+
+def chase_shared(ring: torch.Tensor, out: torch.Tensor, steps: int) -> None:
+    """Launch the shared-memory chase: ``ring`` (slots,) int32 of next
+    slots, ``steps`` steps from slot 0; ``out`` (2,) int64 gets the slot
+    it ends on and the loop's clock cycles."""
+    build.call("mb_vmem_probe", "mb_chase_shared_launch", ring.device, ring,
+               out, ring.numel(), steps, varies=((out, 8, 16),))
+
+
+def chase_global(ring: torch.Tensor, start: int, out: torch.Tensor,
+                 steps: int) -> None:
+    """Launch the device-memory chase: ``ring`` int64 words holding the
+    addresses of their next entries, ``steps`` steps from byte ``start``
+    of it; ``out`` (2,) int64 gets the address it ends on and the loop's
+    clock cycles."""
+    build.call("mb_vmem_probe", "mb_chase_global_launch", ring.device, ring,
+               start, out, steps, relocate=((ring, ring), (out, ring)),
+               varies=((out, 8, 16),))
+
+
+def chase_rw(cells: torch.Tensor, words: int, apart: int,
+             out: torch.Tensor, rounds: int) -> None:
+    """Launch the "l2_rw" chase over ``words`` int64 words of ``cells``,
+    ``apart`` words apart, ``rounds`` read-after-store steps each; ``out``
+    (2,) int64 gets the sum of the values last written and the cycles."""
+    build.call("mb_vmem_probe", "mb_chase_rw_launch", cells.device, cells,
+               words, apart, out, rounds, varies=((out, 8, 16),))
 
 
 def chase_ring(slots: int, seed: int, device) -> Tuple[torch.Tensor,
@@ -179,8 +208,7 @@ def chase_ns(level: str, device=None, seed: int = 0) -> Tuple[float, float]:
         def launch(n: int, out: torch.Tensor) -> int:
             cells = torch.zeros(words * apart // 8, dtype=torch.int64,
                                 device=dev)
-            build.call("mb_vmem_probe", "mb_chase_rw_launch", dev, cells,
-                       words, apart // 8, out, n // words)
+            chase_rw(cells, words, apart // 8, out, n // words)
             return n
 
         def ended(out: torch.Tensor) -> int:
@@ -200,11 +228,9 @@ def chase_ns(level: str, device=None, seed: int = 0) -> Tuple[float, float]:
 
         def launch(n: int, out: torch.Tensor) -> int:
             if level == "shared":
-                build.call("mb_vmem_probe", "mb_chase_shared_launch", dev,
-                           ring, out, slots, n)
+                chase_shared(ring, out, n)
                 return chase_end(order, n)
-            build.call("mb_vmem_probe", "mb_chase_global_launch", dev, ring,
-                       chase_end(order, first[0]) * stride, out, n)
+            chase_global(ring, chase_end(order, first[0]) * stride, out, n)
             want = chase_end(order, first[0] + n)
             if level == "hbm":
                 first[0] += n

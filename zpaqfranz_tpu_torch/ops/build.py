@@ -27,7 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -161,17 +161,45 @@ def load(unit: Unit) -> ctypes.CDLL:
         return lib
 
 
-def call(unit: Unit, symbol: str, device: torch.device, *args) -> None:
+#: when set, every launch goes through it (``experiments/sanitize.py``'s
+#: recorder): ``RECORDER(unit, symbol, args, hints, launch)`` saves the
+#: launch and its tensors' bytes around ``launch()``, which launches and
+#: returns the C entry's error code
+RECORDER: Optional[Callable] = None
+#: the hints ``call`` takes
+HINTS = frozenset({"written", "align", "relocate", "varies"})
+
+
+def call(unit: Unit, symbol: str, device: torch.device, *args,
+         **hints) -> None:
     """Launch the C entry ``symbol`` of kernel library ``unit`` on the
     current stream of ``device``: every kernel wrapper launches through
     here. Tensors pass as their data pointers, ints as ``long long``, and
-    the stream comes last; a CUDA error code other than 0 raises."""
+    the stream comes last; a CUDA error code other than 0 raises.
+
+    ``hints`` tell the recorder what the bytes alone do not, each a
+    sequence: ``written``, the outputs the launch must write whole (their
+    bytes before it are no input); ``align``, ``(tensor, power of two)``
+    for a tensor whose address the launch depends on modulo more than 16
+    bytes; ``relocate``, ``(tensor, target)`` for a tensor whose int64
+    words that fall in ``target``'s bytes are addresses; ``varies``,
+    ``(tensor, first byte, end byte)`` for bytes of an output that differ
+    from run to run (clock counters)."""
+    unknown = set(hints) - HINTS
+    if unknown:
+        raise TypeError(f"unknown launch hints {sorted(unknown)}")
     fn = getattr(load(unit), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor)
                    else ctypes.c_longlong for a in args] + [ctypes.c_void_p]
-    with torch.cuda.device(device):
-        rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-                  for a in args], torch.cuda.current_stream().cuda_stream)
+
+    def launch() -> int:
+        with torch.cuda.device(device):
+            return fn(*[a.data_ptr() if isinstance(a, torch.Tensor)
+                        else int(a) for a in args],
+                      torch.cuda.current_stream().cuda_stream)
+
+    rc = launch() if RECORDER is None else RECORDER(unit, symbol, args,
+                                                    hints, launch)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")

@@ -533,7 +533,8 @@ class LaneLaunch:
         if self._ran:
             raise RuntimeError(f"a prepared {self.kernel} launch runs once")
         self._ran = True
-        build.call(self.unit, f"{self.kernel}_launch", self.dev, *self._args)
+        build.call(self.unit, f"{self.kernel}_launch", self.dev, *self._args,
+                   written=(self.out_len, self.status))
         with _COUNT_LOCK:         # shards launch from several threads
             self.counted()
         return self

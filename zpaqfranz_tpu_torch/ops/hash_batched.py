@@ -295,14 +295,17 @@ class CrcLaunch:
         self.out = torch.empty(n, dtype=torch.uint32, device=dev)
         self.dev = dev
         # kept here so that the tensors outlive the launch
-        self._args = (data, off, length, first, seg_lane,
-                      torch.empty(total, dtype=torch.uint32, device=dev),
+        self._raw = torch.empty(total, dtype=torch.uint32, device=dev)
+        self._args = (data, off, length, first, seg_lane, self._raw,
                       self.out, n, total, seg.bit_length() - 1, self.group,
                       0 if profile is None else profile)
+        # the plan cuts the lanes at multiples of seg of data's address
+        self._align = ((data, seg),)
 
     def run(self) -> torch.Tensor:
         global launches
-        build.call("crc32_lanes", "crc32_lanes_launch", self.dev, *self._args)
+        build.call("crc32_lanes", "crc32_lanes_launch", self.dev, *self._args,
+                   written=(self._raw, self.out), align=self._align)
         launches += 1
         return self.out
 

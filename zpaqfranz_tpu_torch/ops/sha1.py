@@ -194,7 +194,7 @@ class HashLaunch:
 
     def run(self) -> torch.Tensor:
         build.call(self.kernel, f"{self.kernel}_launch", self.dev,
-                   *self._args)
+                   *self._args, written=(self.out,))
         return self.out
 
 

@@ -121,6 +121,20 @@ def parse_block_payload(data: bytes, offset: int
     return model, r.pos, bytes(r.data[r.pos:])
 
 
+def selector(model: Model) -> bytes:
+    """The selector prefix a coded payload starts with: 1 + the PCOMP
+    program when the model has one, else 0."""
+    blob = model.pcomp_bytes()
+    return b"\x01" + blob if blob else b"\x00"
+
+
+def coded_stream(model: Model, payload: bytes) -> bytes:
+    """The native engine's coded segment of ``payload`` as the decoder
+    takes it: the bytes after the segment header, tail included."""
+    return parse_block_payload(
+        native.compress_block(model, payload, b"t", b"c"), 0)[2]
+
+
 #: bytes read from a block's start to parse its model: the header (at most
 #: 65,537 bytes) and the first segment's name and comment
 HEADER_READ = 1 << 17
@@ -301,8 +315,7 @@ def encode_jidac_blocks(model: Model, pre, jobs: Iterable, date: int,
     payloads held in memory. ``journal`` (``jidac.add.ResumeJournal``)
     supplies blocks coded by an interrupted run and records new ones."""
     from ..jidac.add import _STORE_MODEL, job_bytes, verify_payload
-    blob = model.pcomp_bytes()
-    prefix = (b"\x01" + blob) if blob else b"\x00"
+    prefix = selector(model)
     step = lanes_per_launch(model, encode_lane_io(model, max_job), device)
     pending: List[Tuple[object, Optional[bytes], int]] = []
     payloads: List[bytes] = []
