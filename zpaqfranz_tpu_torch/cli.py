@@ -37,6 +37,8 @@ import sys
 import time
 from typing import Dict, List, Optional, Sequence
 
+from . import trace
+
 
 def _fmt_size(n: int) -> str:
     return f"{n:,}"
@@ -124,8 +126,11 @@ def _load_index(archive: str, sw):
     device decode) pulls block ranges through the source."""
     from .jidac.archive_io import ArchiveSource
     from .jidac.index import read_archive_src
-    src = ArchiveSource.from_spec(archive, key=_key(sw))
-    return src, read_archive_src(src, until=_until(sw))
+    with trace.span("jidac.index") as sp:
+        src = ArchiveSource.from_spec(archive, key=_key(sw))
+        jd = read_archive_src(src, until=_until(sw))
+        sp.add(blocks=len(jd.block), fragments=len(jd.ht))
+    return src, jd
 
 
 def cmd_add(archive, files, sw) -> int:
@@ -1530,7 +1535,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     try:
         arg0 = archive if plain else (_archive_path(archive)
                                       if archive else None)
-        rc = fn(arg0, files, sw)
+        with trace.span("op." + cmd) as op:
+            rc = fn(arg0, files, sw)
+            op.add(rc=rc)
         if "stat" in sw:
             # greppable stats lines (reference |STAT|, CHANGELOG.md:83-84)
             print(f"|STAT| cmd={cmd} rc={rc} seconds={time.time() - t0:.3f}")

@@ -56,7 +56,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
   Lane s;
   int lane;
   if (!init_lane(s, m, smem, G, lpb, lane_words, geo, L, a8, s8, a32, s32,
-                 hmem, mmem, rmem, hh, hm, prof, &lane))
+                 hmem, mmem, rmem, hh, hm, prof, stamps, &lane))
     return;
   Step step;
   step.init();
@@ -116,6 +116,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     status[lane] = s.status;
   }
   save_profile(s);
+  save_stamp(s);
 }
 
 }  // namespace
@@ -132,14 +133,15 @@ int cm_decode_launch(const void* comps, const void* cplan, const void* off8,
                      long long s8, void* a32, long long s32, void* hmem,
                      void* mmem, void* rmem, void* out, const void* out_off,
                      const void* out_cap, void* out_len, void* status,
-                     void* prof, long long L, void* stream) {
+                     void* prof, void* stamps, long long L,
+                     void* stream) {
   return launch_lanes(cm_decode_kernel, comps, cplan, off8, off32, int(n),
                       hcomp, int(hlen), int(hh), int(hm), u64(max_steps),
                       int(G), int(lpb),
                       int(blocks), int(lane_words), geo, lut, in, in_off,
                       in_len, a8, s8, a32, s32, hmem, mmem, rmem, out,
-                      out_off, out_cap, out_len, status, prof, int(L),
-                      stream);
+                      out_off, out_cap, out_len, status, prof, stamps,
+                      int(L), stream);
 }
 
 }  // extern "C"

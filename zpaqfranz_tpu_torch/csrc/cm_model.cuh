@@ -179,7 +179,16 @@ struct Lane {
   long long* prof;      // this lane's NPROF counters (thread 0), or null
   long long acc[NPROF];
   long long t;
+  long long* stamp;     // this lane's start and end in ns (thread 0), or
+                        // null
 };
+
+// the card's nanosecond clock, one for every SM
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // adds the cycles since the last mark to counter k of a profiled lane
 __device__ __forceinline__ void mark(Lane& s, int k) {
@@ -731,7 +740,7 @@ __device__ __forceinline__ int code_bit(Lane& s, const Model& m, Step& step,
       u8 *a8, i64 s8, u32 *a32, i64 s32, u32 *hmem, u8 *mmem, u32 *rmem,     \
       u8 *out,                                                               \
       const i64 *__restrict__ out_off, const i64 *__restrict__ out_cap,      \
-      i64 *out_len, i32 *status, long long *prof, int L
+      i64 *out_len, i32 *status, long long *prof, long long *stamps, int L
 
 // Copies the LUTs and the model into the block's header in shared memory
 // and returns it. Every thread of the block calls it (it ends in
@@ -820,7 +829,8 @@ __device__ __forceinline__ Model load_model(unsigned char* smem,
 // the region and copies its shared tables' initial contents from the
 // lane's device arena, then runs phase (a) of the first bit. Returns false
 // for a thread past the last lane.
-// prof (or null) receives NPROF clock counters per lane.
+// prof (or null) receives NPROF clock counters per lane, stamps (or null)
+// each lane's start here and end (save_stamp) on the global timer.
 __device__ __forceinline__ bool init_lane(Lane& s, const Model& m,
                                           unsigned char* smem, int G,
                                           int lpb, int lane_words,
@@ -828,7 +838,7 @@ __device__ __forceinline__ bool init_lane(Lane& s, const Model& m,
                                           i64 s8, u32* a32, i64 s32,
                                           u32* hmem, u8* mmem, u32* rmem,
                                           int hh, int hm, long long* prof,
-                                          int* lane_out) {
+                                          long long* stamps, int* lane_out) {
   const int gi = threadIdx.x / G;
   const int lane = blockIdx.x * lpb + gi;
   if (lane >= L) return false;
@@ -871,6 +881,8 @@ __device__ __forceinline__ bool init_lane(Lane& s, const Model& m,
   s.prof = prof && s.k == 0 ? prof + i64(lane) * NPROF : nullptr;
   for (int k = 0; k < NPROF; ++k) s.acc[k] = 0;
   s.t = clock64();
+  s.stamp = stamps && s.k == 0 ? stamps + 2 * i64(lane) : nullptr;
+  if (s.stamp) s.stamp[0] = globaltimer();
   *lane_out = lane;
   phase_a(s, m);
   mark(s, P_A);
@@ -881,6 +893,11 @@ __device__ __forceinline__ bool init_lane(Lane& s, const Model& m,
 __device__ __forceinline__ void save_profile(const Lane& s) {
   if (s.prof)
     for (int k = 0; k < NPROF; ++k) s.prof[k] = s.acc[k];
+}
+
+// writes a stamped lane's end
+__device__ __forceinline__ void save_stamp(const Lane& s) {
+  if (s.stamp) s.stamp[1] = globaltimer();
 }
 
 typedef void (*LaneKernel)(CM_LANE_PARAMS);
@@ -899,7 +916,7 @@ inline int launch_lanes(LaneKernel kernel, const void* comps,
                         long long s8, void* a32, long long s32, void* hmem,
                         void* mmem, void* rmem, void* out, const void* out_off,
                         const void* out_cap, void* out_len, void* status,
-                        void* prof, int L, void* stream) {
+                        void* prof, void* stamps, int L, void* stream) {
   const long long smem =
       header_bytes(n, hlen) + (long long)lpb * lane_words * 4;
   if (n < 1 || n > MAXC || G < 1 || G > 32 || (G & (G - 1)) || lpb < 1
@@ -919,7 +936,7 @@ inline int launch_lanes(LaneKernel kernel, const void* comps,
       (const i64*)in_off, (const i64*)in_len, (u8*)a8, s8, (u32*)a32, s32,
       (u32*)hmem, (u8*)mmem, (u32*)rmem, (u8*)out, (const i64*)out_off,
       (const i64*)out_cap, (i64*)out_len, (i32*)status, (long long*)prof,
-      L);
+      (long long*)stamps, L);
   return (int)cudaGetLastError();
 }
 

@@ -812,8 +812,10 @@ def cm_cases(torch, dev, rng) -> Iterable[Case]:
     and ~2 KiB; one lane; one block's lanes and one more (two blocks); a
     last lane at exactly its output capacity and one byte short of it
     (which must fail); for decode also a truncated and an empty stream
-    (which must fail). Then one lane of each ``CM_WIDE`` model. Held
-    against the native engine."""
+    (which must fail). The two blocks' lanes launch under a CPU profiler,
+    so that they write their start and end stamps (``LaneLaunch.stamps``).
+    Then one lane of each ``CM_WIDE`` model. Held against the native
+    engine."""
     from ..ops import cm_decode as cmd, cm_encode as cme
     from ..ops.cm_model import Placement, hcomp_step
     from ..parallel.engine import coded_stream, selector
@@ -823,7 +825,24 @@ def cm_cases(torch, dev, rng) -> Iterable[Case]:
         out = b"".join(words[i] for i in rng.integers(0, len(words), n))
         return (out + rng.bytes(n))[:n]
 
-    def encode(model, hcomp, pays, tight=None):
+    def launched(make, stamped):
+        """``make()``'s launch run, under the profiler when ``stamped``."""
+        if not stamped:
+            return make().run()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]):
+            return make().run()
+
+    def stamped_in_order(launch, stamped):
+        expect((launch.stamps is not None) == stamped,
+               f"a launch {'under' if stamped else 'outside'} the profiler "
+               f"{'lacks' if stamped else 'has'} stamps")
+        if stamped:
+            ns = launch.stamps.cpu()
+            expect(bool((ns[:, 0] <= ns[:, 1]).all()),
+                   "a lane's end stamp is before its start")
+
+    def encode(model, hcomp, pays, tight=None, stamped=False):
         """``tight``: the last lane's capacity is its coded length plus
         ``tight`` (it must fail below its length)."""
         def run():
@@ -835,9 +854,10 @@ def cm_cases(torch, dev, rng) -> Iterable[Case]:
             data, off, length, cap = cme.pack_payloads(pays, dev)
             if tight is not None:
                 cap[-1] = len(want[-1]) + tight
-            launch = cme.Launch(model, data, off, length, cap,
-                                hcomp=hcomp).run()
+            launch = launched(lambda: cme.Launch(model, data, off, length,
+                                                 cap, hcomp=hcomp), stamped)
             status = launch.status.tolist()
+            stamped_in_order(launch, stamped)
             got = cmd.lanes_to_bytes(launch.out, launch.out_off,
                                      launch.out_len)
             for k in range(len(pays)):
@@ -848,7 +868,8 @@ def cm_cases(torch, dev, rng) -> Iterable[Case]:
                        f"cm_encode lane {k} differs from the native engine")
         return run
 
-    def decode(model, hcomp, pays, damaged=False, tight=None):
+    def decode(model, hcomp, pays, damaged=False, tight=None,
+               stamped=False):
         """``damaged``: a truncated and an empty stream follow, which must
         fail; ``tight``: the last lane's capacity is its decoded length
         plus ``tight`` (it must fail below its length)."""
@@ -861,9 +882,11 @@ def cm_cases(torch, dev, rng) -> Iterable[Case]:
             if damaged:
                 streams += [streams[-1][:len(streams[-1]) // 2], b""]
                 caps += [4096, 64]
-            launch = cmd.Launch(model, *cmd.pack_streams(streams, caps, dev),
-                                hcomp=hcomp).run()
+            packed = cmd.pack_streams(streams, caps, dev)
+            launch = launched(lambda: cmd.Launch(model, *packed,
+                                                 hcomp=hcomp), stamped)
             status = launch.status.tolist()
+            stamped_in_order(launch, stamped)
             got = cmd.lanes_to_bytes(launch.out, launch.out_off,
                                      launch.out_len)
             good = len(pays) - (tight is not None and tight < 0)
@@ -894,8 +917,9 @@ def cm_cases(torch, dev, rng) -> Iterable[Case]:
             yield Case("cm_encode_launch", f"cm_encode {tag}: one lane",
                        encode(model, hcomp, [sel + sizes[2]]))
             yield Case("cm_encode_launch", f"cm_encode {tag}: {per + 1} "
-                       f"lanes (two blocks)",
-                       encode(model, hcomp, [sel + p for p in many]))
+                       f"lanes (two blocks), stamped",
+                       encode(model, hcomp, [sel + p for p in many],
+                              stamped=True))
             two = [sel + sizes[2], sel + sizes[3]]
             for tight, what in ((0, "at exactly"), (-1, "one byte past")):
                 yield Case("cm_encode_launch", f"cm_encode {tag}: a lane "
@@ -906,7 +930,8 @@ def cm_cases(torch, dev, rng) -> Iterable[Case]:
             yield Case("cm_decode_launch", f"cm_decode {tag}: one lane",
                        decode(model, hcomp, [sizes[2]]))
             yield Case("cm_decode_launch", f"cm_decode {tag}: {per + 1} "
-                       f"lanes (two blocks)", decode(model, hcomp, many))
+                       f"lanes (two blocks), stamped",
+                       decode(model, hcomp, many, stamped=True))
             yield Case("cm_decode_launch", f"cm_decode {tag}: a truncated "
                        f"and an empty lane",
                        decode(model, hcomp, [sizes[2]], damaged=True))

@@ -28,7 +28,7 @@ import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .. import native
+from .. import native, trace
 from ..codec.methods import make_model
 from ..zpaql.header import Model
 from .index import DT, HT, Jidac, read_archive
@@ -221,7 +221,9 @@ def open_for_append(archive: str, key: Optional[str] = None,
             if not ok:
                 raise AddError("password incorrect (bad archive magic)")
         from .index import read_archive_src
-        jd = read_archive_src(src)
+        with trace.span("jidac.index") as sp:
+            jd = read_archive_src(src)
+            sp.add(blocks=len(jd.block), fragments=len(jd.ht))
         plain_len = src.size()
         if not notrim and not multipart:
             # Auto-trim of a trailing bad transaction (reference default,
@@ -873,9 +875,11 @@ def add(archive: str, files: Sequence[str], method: str = "1",
         from ..device import resolve
         dev = resolve(device)         # no card: raise before writing
 
-    ext = scan_files(files)
-    changed, deleted = diff_index(jd, ext, files)
-    est_bytes = sum(ext[n][1] for n in changed)
+    with trace.span("add.scan") as sp:
+        ext = scan_files(files)
+        changed, deleted = diff_index(jd, ext, files)
+        est_bytes = sum(ext[n][1] for n in changed)
+        sp.add(files=len(changed), bytes=est_bytes)
     if use_device is None and coded and changed:
         dev = _gated_device(model, method, est_bytes, block_cap,
                             fragment_bits, device)
@@ -908,7 +912,13 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     import concurrent.futures as _fut
     hash_threads = threads or min(16, (os.cpu_count() or 4))
 
-    def _digest_file(name: str):
+    def _digest_file(name: str, parent):
+        with trace.span("add.digest", parent=parent) as sp:
+            nbytes, sums, frags = _digest(name)
+            sp.add(bytes=nbytes, fragments=len(frags))
+        return nbytes, sums, frags
+
+    def _digest(name: str):
         # mmap: the digest kernel reads pages straight from the page cache
         # (no separate Python read pass over the file). The mapping is
         # closed before returning — executor.map runs ahead of the
@@ -959,17 +969,27 @@ def add(archive: str, files: Sequence[str], method: str = "1",
         def planned_jobs():
             # d-block jobs in order, each as soon as it fills
             done_bytes = 0
+            parent = trace.current()
             with _fut.ThreadPoolExecutor(max_workers=hash_threads) as hx:
-                for name, (nbytes_f, sums, frags) in zip(
-                        changed, hx.map(_digest_file, changed)):
+                with trace.span("add.pool", files=len(changed)):
+                    digests = hx.map(_digest_file, changed,
+                                     [parent] * len(changed))
+                for name in changed:
+                    with trace.span("add.digest_wait"):
+                        nbytes_f, sums, frags = next(digests)
                     file_sums[name] = sums
                     done_bytes += nbytes_f
                     if progress is not None:
                         progress(done_bytes, est_bytes)
-                    for job in planner.add_file(name, frags, None):
+                    with trace.span("add.plan") as sp:
+                        filled = planner.add_file(name, frags, None)
+                        sp.add(jobs=len(filled))
+                    for job in filled:
                         jobs.append(job)
                         yield job
-            tail = planner.finish()
+            with trace.span("add.plan") as sp:
+                tail = planner.finish()
+                sp.add(jobs=int(tail is not None))
             if tail is not None:
                 jobs.append(tail)
                 yield tail
@@ -980,22 +1000,26 @@ def add(archive: str, files: Sequence[str], method: str = "1",
                     model, pre, planned_jobs(), date, _jdc_name, dev,
                     max_job_bytes(block_cap, fragment_bits), verify=verify,
                     journal=journal):
-                spill.append(blk)
+                with trace.span("add.spill"):
+                    spill.append(blk)
         else:
             for job in planned_jobs():
                 d_futs.append(cx.submit(_compress_job, job))
                 drain(block=False)
             drain(block=True)
 
-        pieces = stream_transaction(
-            date, jobs, spill, changed, deleted, ext, file_sums,
-            planner.file_ptrs, planner.first_frag, franz=franz)
-        nbytes = commit_transaction_stream(
-            ctx, pieces, lambda: spill.index_bytes, chunk=chunk, tmp=tmp,
-            index_path=index_path)
+        with trace.span("add.commit") as sp:
+            pieces = stream_transaction(
+                date, jobs, spill, changed, deleted, ext, file_sums,
+                planner.file_ptrs, planner.first_frag, franz=franz)
+            nbytes = commit_transaction_stream(
+                ctx, pieces, lambda: spill.index_bytes, chunk=chunk,
+                tmp=tmp, index_path=index_path)
+            sp.add(bytes=nbytes)
     finally:
         cx.shutdown(wait=False)
-        spill.close()
+        with trace.span("add.spill"):
+            spill.close()
     if journal is not None:
         journal.done()
     return len(changed), len(planner.new_ht), nbytes

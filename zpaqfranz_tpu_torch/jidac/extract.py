@@ -21,7 +21,7 @@ import os
 import pathlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .. import native
+from .. import native, trace
 from ..errors import ExtractError
 from .archive_io import ArchiveSource, as_source
 from .index import Block, Jidac, fragment_to_block
@@ -74,13 +74,14 @@ def _check_fragments(jd: Jidac, blk: Block, out: bytes) -> None:
 
 def _verify_fragments(jd: Jidac, blk: Block, out: bytes) -> Dict[int, bytes]:
     """Split decoded block bytes into fragments, checking SHA-1s."""
-    _check_fragments(jd, blk, out)
-    frags: Dict[int, bytes] = {}
-    q = 0
-    for j in range(blk.start, blk.start + blk.frags):
-        usize = jd.ht[j].usize
-        frags[j] = out[q:q + usize]
-        q += usize
+    with trace.span("extract.verify", fragments=blk.frags, bytes=len(out)):
+        _check_fragments(jd, blk, out)
+        frags: Dict[int, bytes] = {}
+        q = 0
+        for j in range(blk.start, blk.start + blk.frags):
+            usize = jd.ht[j].usize
+            frags[j] = out[q:q + usize]
+            q += usize
     return frags
 
 
@@ -186,25 +187,27 @@ def extract(data, jd: Jidac, to_dir: str,
 
     root = pathlib.Path(to_dir)
     total = 0
-    for n in names:
-        d = jd.dt[n]
-        out_name = rename(n) if rename else n
-        path = root / out_name.lstrip("/")
-        path.parent.mkdir(parents=True, exist_ok=True)
-        with open(path, "wb") as f:
-            for frag in d.ptr:
-                piece = frag_bytes.get(frag)
-                if piece is None:
-                    raise ExtractError(f"{n}: fragment {frag} missing")
-                f.write(piece)
-                total += len(piece)
-        if d.date > 19000000000000:
-            ts = _date_to_unix(d.date)
-            os.utime(path, (ts, ts))
-        if d.attr and (d.attr & 255) == ord("u"):
-            mode = (d.attr >> 8) & 0o7777
-            if mode:
-                os.chmod(path, mode)
+    with trace.span("extract.write", files=len(names)) as sp:
+        for n in names:
+            d = jd.dt[n]
+            out_name = rename(n) if rename else n
+            path = root / out_name.lstrip("/")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            with open(path, "wb") as f:
+                for frag in d.ptr:
+                    piece = frag_bytes.get(frag)
+                    if piece is None:
+                        raise ExtractError(f"{n}: fragment {frag} missing")
+                    f.write(piece)
+                    total += len(piece)
+            if d.date > 19000000000000:
+                ts = _date_to_unix(d.date)
+                os.utime(path, (ts, ts))
+            if d.attr and (d.attr & 255) == ord("u"):
+                mode = (d.attr >> 8) & 0o7777
+                if mode:
+                    os.chmod(path, mode)
+        sp.add(bytes=total)
     return len(names), total
 
 
@@ -298,13 +301,17 @@ def _check_lanes(jd: Jidac, blocks: List[Block], outs: List[bytes],
         if q - base > len(out):
             raise ExtractError(f"block at {blk.offset}: fragments incomplete")
         base += len(out)
-    flat = sha1.stage_bytes(outs, device)
-    states = sha1.sha1_lanes(
-        flat, torch.tensor(offs, dtype=torch.int64).to(device),
-        torch.tensor(lens, dtype=torch.int64).to(device))
-    for j, dig in zip(frag_ids, sha1.to_digests(states)):
-        if dig != jd.ht[j].sha1:
-            raise ExtractError(f"fragment {j}: checksum failed")
+    with trace.span("verify.stage", pinned=base):
+        flat = sha1.stage_bytes(outs, device)
+    with trace.span("verify.hash", fragments=len(frag_ids)) as sp:
+        if trace.enabled():
+            sp.add(bytes=sum(lens))
+        states = sha1.sha1_lanes(
+            flat, torch.tensor(offs, dtype=torch.int64).to(device),
+            torch.tensor(lens, dtype=torch.int64).to(device))
+        for j, dig in zip(frag_ids, sha1.to_digests(states)):
+            if dig != jd.ht[j].sha1:
+                raise ExtractError(f"fragment {j}: checksum failed")
     return len(frag_ids)
 
 
@@ -318,13 +325,20 @@ def _verify_archive_device(data, jd: Jidac, threads: int,
     fails to decode or fragment that fails its checksum raises."""
     batches = _batches(jd)
     nfrag = 0
-    with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as ex:
-        pending = ([ex.submit(_decode_block, data, b) for b in batches[0]]
+    with trace.span("verify", threads=threads, batches=len(batches),
+                    blocks=len(jd.block)) as parent, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=threads) as ex:
+        def decode(blk: Block) -> bytes:
+            with trace.span("verify.decode", parent=parent,
+                            usize=blk.usize):
+                return _decode_block(data, blk)
+
+        pending = ([ex.submit(decode, b) for b in batches[0]]
                    if batches else [])
         for k, blocks in enumerate(batches):
-            outs = [f.result() for f in pending]
-            pending = ([ex.submit(_decode_block, data, b)
-                        for b in batches[k + 1]]
+            with trace.span("verify.decode_wait"):
+                outs = [f.result() for f in pending]
+            pending = ([ex.submit(decode, b) for b in batches[k + 1]]
                        if k + 1 < len(batches) else [])
             try:
                 nfrag += _check_lanes(jd, blocks, outs, device)

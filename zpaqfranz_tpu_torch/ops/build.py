@@ -31,6 +31,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
+from .. import trace
+
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
@@ -131,20 +133,22 @@ def build(units: Iterable[Unit] = tuple(SOURCES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.time()
-    for u in todo:
-        key = unit_key(u)
-        tmp = paths[key].with_suffix(f".{os.getpid()}.tmp")
-        procs[key] = (tmp, subprocess.Popen(
-            _command(u, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
     failed = []
-    for key, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[key] = {"seconds": time.time() - t0, "ptxas": log}
-        if proc.returncode != 0:
-            failed.append(f"{key}:\n{log}")
-        else:
-            os.replace(tmp, paths[key])
+    with trace.span("kernel.build",
+                    unit=" ".join(unit_key(u) for u in todo)):
+        for u in todo:
+            key = unit_key(u)
+            tmp = paths[key].with_suffix(f".{os.getpid()}.tmp")
+            procs[key] = (tmp, subprocess.Popen(
+                _command(u, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        for key, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOG[key] = {"seconds": time.time() - t0, "ptxas": log}
+            if proc.returncode != 0:
+                failed.append(f"{key}:\n{log}")
+            else:
+                os.replace(tmp, paths[key])
     if failed:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     return paths

@@ -70,13 +70,14 @@ def cm_decode(model: Model, coded: torch.Tensor, in_off: torch.Tensor,
     check_lanes(model, coded, in_off, in_len, out_cap)
     if coded.device.type == "cpu":
         return cm_decode_plain(model, coded, in_off, in_len, out_cap)
-    return Launch(model, coded, in_off, in_len, out_cap,
-                  max_hcomp_steps=max_hcomp_steps).run().result()
+    return Launch.code(model, coded, in_off, in_len, out_cap,
+                       max_hcomp_steps=max_hcomp_steps)
 
 
 class Launch(LaneLaunch):
     """One prepared launch of the decode kernel (``cm_model.LaneLaunch``);
-    ``cm_decode`` is ``Launch(...).run().result()``."""
+    ``cm_decode`` is ``Launch.code(...)``, ``Launch(...).run().result()``
+    under the tracer's spans."""
 
     kernel = "cm_decode"
     error = CMDecodeError

@@ -71,13 +71,14 @@ def cm_encode(model: Model, data: torch.Tensor, in_off: torch.Tensor,
     check_lanes(model, data, in_off, in_len, out_cap)
     if data.device.type == "cpu":
         return cm_encode_plain(model, data, in_off, in_len, out_cap)
-    return Launch(model, data, in_off, in_len, out_cap,
-                  max_hcomp_steps=max_hcomp_steps).run().result()
+    return Launch.code(model, data, in_off, in_len, out_cap,
+                       max_hcomp_steps=max_hcomp_steps)
 
 
 class Launch(LaneLaunch):
     """One prepared launch of the encode kernel (``cm_model.LaneLaunch``);
-    ``cm_encode`` is ``Launch(...).run().result()``."""
+    ``cm_encode`` is ``Launch.code(...)``, ``Launch(...).run().result()``
+    under the tracer's spans."""
 
     kernel = "cm_encode"
     error = CMEncodeError

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..models import tables as T
 from ..zpaql.header import Model
 from ..zpaql.vm import VM, ZPAQLRuntimeError
@@ -435,6 +436,11 @@ class LaneLaunch:
     out_off, out_len)``. The split lets a caller time the launch apart from
     the state set-up. ``profile=True`` has thread 0 of every lane count its
     clock cycles per phase (``PROFILE``), read with ``profile()``.
+    While the tracer records (``trace.enabled``), it also writes the
+    card's nanosecond clock when each lane starts and ends (``stamps``,
+    (L, 2) int64), and ``result()`` adds each lane's nanoseconds
+    (``lane_ns``) and the launch's, from the first start to the last end
+    (``kernel_ns``), to its span ``cm.wait``; else ``stamps`` is None.
 
     ``hcomp`` is the HCOMP step (``hcomp_step``): None runs the program
     specialised when ``try_compile`` accepts it, else the interpreter, as
@@ -463,6 +469,19 @@ class LaneLaunch:
                              f"{src.device}")
         self.prepare(model, src, in_off, in_len, out_cap, profile, hcomp,
                      max_hcomp_steps)
+
+    @classmethod
+    def code(cls, model: Model, src: torch.Tensor, in_off: torch.Tensor,
+             in_len: torch.Tensor, out_cap: torch.Tensor,
+             max_hcomp_steps: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``cls(...).run().result()``: the set-up and the launch under the
+        span ``cm.launch``, the wait for the kernel under ``cm.wait``."""
+        with trace.span("cm.launch", lanes=int(in_off.shape[0])) as sp:
+            launch = cls(model, src, in_off, in_len, out_cap,
+                         max_hcomp_steps=max_hcomp_steps).run()
+            sp.add(hcomp=launch.hcomp)
+        return launch.result()
 
     def prepare(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
                 in_len: torch.Tensor, out_cap: torch.Tensor,
@@ -511,6 +530,8 @@ class LaneLaunch:
         self.status = torch.empty(L, dtype=torch.int32, device=dev)
         self.prof = (torch.zeros((L, len(PROFILE)), dtype=torch.int64,
                                  device=dev) if profile else None)
+        self.stamps = (torch.empty((L, 2), dtype=torch.int64, device=dev)
+                       if trace.enabled() else None)
         t_comps, t_cplan, t_off8, t_off32, t_hcomp, t_geo, t_lut = \
             self._inputs
         a8, a32, hmem, mmem = self._state
@@ -521,7 +542,8 @@ class LaneLaunch:
             in_len, a8, plan.s8, a32, lay.s32,
             *[0 if t is None else t for t in (hmem, mmem, self._rmem)],
             self.out, self.out_off, out_cap, self.out_len, self.status,
-            0 if self.prof is None else self.prof, L)
+            0 if self.prof is None else self.prof,
+            0 if self.stamps is None else self.stamps, L)
         self._ran = False
 
     def counted(self) -> None:
@@ -533,8 +555,10 @@ class LaneLaunch:
         if self._ran:
             raise RuntimeError(f"a prepared {self.kernel} launch runs once")
         self._ran = True
+        stamps = () if self.stamps is None else (self.stamps,)
         build.call(self.unit, f"{self.kernel}_launch", self.dev, *self._args,
-                   written=(self.out_len, self.status))
+                   written=(self.out_len, self.status, *stamps),
+                   varies=[(t, 0, t.numel() * 8) for t in stamps])
         with _COUNT_LOCK:         # shards launch from several threads
             self.counted()
         return self
@@ -548,7 +572,12 @@ class LaneLaunch:
     def result(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         if not self._ran:
             raise RuntimeError(f"the {self.kernel} launch has not run")
-        raise_failed(self.status, self.error, self.reasons)
+        with trace.span("cm.wait") as sp:
+            raise_failed(self.status, self.error, self.reasons)
+            if self.stamps is not None:
+                ns = self.stamps.cpu()
+                sp.add(lane_ns=(ns[:, 1] - ns[:, 0]).tolist(),
+                       kernel_ns=int(ns[:, 1].max() - ns[:, 0].min()))
         return self.out, self.out_off, self.out_len
 
 

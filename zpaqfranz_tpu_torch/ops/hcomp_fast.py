@@ -49,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..zpaql.header import Model
 
 _M32 = 0xFFFFFFFF
@@ -551,8 +552,9 @@ def try_compile(model: Model) -> Optional[FastHcomp]:
     interpreter: a coverage choice, never a correctness one)."""
     key = (model.hcomp, model.n, model.hh, model.hm)
     if key not in _CACHE:
-        try:
-            _CACHE[key] = FastHcomp(model)
-        except Exception:
-            _CACHE[key] = None
+        with trace.span("kernel.build", unit="hcomp"):
+            try:
+                _CACHE[key] = FastHcomp(model)
+            except Exception:
+                _CACHE[key] = None
     return _CACHE[key]

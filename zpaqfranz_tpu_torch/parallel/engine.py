@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from .. import native
+from .. import native, trace
 from ..errors import ExtractError
 from ..codec.container import (TAG, ByteReader, find_block, read_comment,
                                read_filename)
@@ -87,10 +87,21 @@ def decode_streams(model: Model, streams: Sequence[bytes],
     lane_io = math.ceil((sum(map(len, streams)) + sum(caps)) / len(streams))
     step = lanes_per_launch(model, lane_io, device)
     for s in range(0, len(streams), step):
-        packed = cmd.pack_streams(streams[s:s + step], caps[s:s + step],
-                                  device)
-        out += cmd.lanes_to_bytes(*cmd.cm_decode(
-            model, *packed, max_hcomp_steps=max_hcomp_steps))
+        with trace.span("engine.pack") as sp:
+            packed = cmd.pack_streams(streams[s:s + step], caps[s:s + step],
+                                      device)
+            sp.add(lanes=len(packed[1]), bytes=packed[0].numel())
+        out += _unpack(cmd.cm_decode(model, *packed,
+                                     max_hcomp_steps=max_hcomp_steps))
+    return out
+
+
+def _unpack(result) -> List[bytes]:
+    """``cm_model.lanes_to_bytes`` under the span ``engine.unpack``."""
+    with trace.span("engine.unpack") as sp:
+        out = cmd.lanes_to_bytes(*result)
+        if trace.enabled():
+            sp.add(bytes=sum(map(len, out)))
     return out
 
 
@@ -103,9 +114,11 @@ def encode_streams(model: Model, payloads: Sequence[bytes],
     ``cm_encode.lane_cap(len(payloads[i]))`` bytes, and a lane that would
     exceed it raises. ``max_hcomp_steps``: the kernel's limit on an
     interpreted HCOMP run."""
-    packed = cme.pack_payloads(payloads, device)
-    return cmd.lanes_to_bytes(*cme.cm_encode(
-        model, *packed, max_hcomp_steps=max_hcomp_steps))
+    with trace.span("engine.pack") as sp:
+        packed = cme.pack_payloads(payloads, device)
+        sp.add(lanes=len(payloads), bytes=packed[0].numel())
+    return _unpack(cme.cm_encode(model, *packed,
+                                 max_hcomp_steps=max_hcomp_steps))
 
 
 def parse_block_payload(data: bytes, offset: int
@@ -181,8 +194,9 @@ def decode_jidac_blocks(data, jd, blocks, device: torch.device
     host_blocks = []
     metas = {}
     for blk, n in zip(blocks, _block_sizes(src, jd, blocks)):
-        model, _, payload = parse_block_payload(src.read_range(blk.offset, n),
-                                                0)
+        with trace.span("extract.read", bytes=n):
+            model, _, payload = parse_block_payload(
+                src.read_range(blk.offset, n), 0)
         metas[blk.offset] = (model, payload)
         if model.n > 0:
             groups.setdefault(model.header_bytes(), []).append(blk)
@@ -195,7 +209,9 @@ def decode_jidac_blocks(data, jd, blocks, device: torch.device
         decoded = decode_streams(model, [metas[b.offset][1] for b in blks],
                                  [b.usize + OUT_SLACK for b in blks], device)
         for b, d in zip(blks, decoded):
-            res = native.postprocess(model.ph, model.pm, d, out_hint=b.usize)
+            with trace.span("extract.postprocess"):
+                res = native.postprocess(model.ph, model.pm, d,
+                                         out_hint=b.usize)
             if len(res) < b.usize:
                 raise ExtractError(
                     f"block at {b.offset}: {len(res)} < {b.usize} bytes")
@@ -325,9 +341,11 @@ def encode_jidac_blocks(model: Model, pre, jobs: Iterable, date: int,
                      if payloads else [])
         for job, block, raw_len in pending:
             if block is None:
-                block = assemble_block(
-                    model, next(coded), jdc_name(date, "d", job.first_frag),
-                    b"%d jDC\x01" % raw_len)
+                with trace.span("add.assemble"):
+                    block = assemble_block(
+                        model, next(coded),
+                        jdc_name(date, "d", job.first_frag),
+                        b"%d jDC\x01" % raw_len)
                 if journal is not None:
                     journal.put(job, block)
             yield block
@@ -338,19 +356,23 @@ def encode_jidac_blocks(model: Model, pre, jobs: Iterable, date: int,
         block = journal.get(job) if journal is not None else None
         raw_len = 0
         if block is None:
-            raw = job_bytes(job)
-            raw_len = len(raw)
-            payload, store = prepare_payload(pre, raw)
-            if store:
-                block = native.compress_block(
-                    _STORE_MODEL, raw, jdc_name(date, "d", job.first_frag),
-                    b"%d jDC\x01" % raw_len)
-                if journal is not None:
-                    journal.put(job, block)
-            else:
-                if verify:
-                    verify_payload(model, pre, raw, payload, job.first_frag)
-                payloads.append(prefix + payload)
+            with trace.span("add.prepare") as sp:
+                raw = job_bytes(job)
+                raw_len = len(raw)
+                payload, store = prepare_payload(pre, raw)
+                sp.add(raw=raw_len, coded=len(payload), store=int(store))
+                if store:
+                    block = native.compress_block(
+                        _STORE_MODEL, raw,
+                        jdc_name(date, "d", job.first_frag),
+                        b"%d jDC\x01" % raw_len)
+                    if journal is not None:
+                        journal.put(job, block)
+                else:
+                    if verify:
+                        verify_payload(model, pre, raw, payload,
+                                       job.first_frag)
+                    payloads.append(prefix + payload)
         pending.append((job, block, raw_len))
         if len(payloads) >= step:
             yield from flush()
