@@ -2347,7 +2347,7 @@ def main() -> int:
     from zpaqfranz_tpu_torch.ops import build, cm_decode as cmd
     from zpaqfranz_tpu_torch.ops import cm_encode as cme, sha1, sha256
     from zpaqfranz_tpu_torch.ops import hash_batched as hb
-    from zpaqfranz_tpu_torch.ops.hcomp_fast import try_compile
+    from zpaqfranz_tpu_torch.ops.cm_model import kernel_unit
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2360,16 +2360,16 @@ def main() -> int:
     models = {**cm_models(), MH_METHOD: make_model(MH_METHOD)[0]}
     for name, model in models.items():
         for kernel in ("cm_decode", "cm_encode"):
-            unit = (kernel, try_compile(model).cuda_source())
+            unit = kernel_unit(kernel, model)
             labels.setdefault(build.unit_key(unit), (unit, []))[1].append(
                 name)
     build.build(list(build.SOURCES) + [u for u, _ in labels.values()])
     log(f"built {', '.join(build.SOURCES)} and the CM kernels of "
-        f"{len(labels) // 2} specialised HCOMP programs in "
+        f"{len(labels) // 2} specialised models (HCOMP and combine) in "
         f"{time.perf_counter() - t0:.1f} s")
     for key, rec in build.BUILD_LOG.items():
         name = key if key not in labels else (
-            f"{key.split('+')[0]} HCOMP specialised for "
+            f"{key.split('+')[0]} specialised for "
             f"{'/'.join(labels[key][1])}")
         log(f"  {name}: {rec['seconds']:.1f} s")
         for line in str(rec["ptxas"]).splitlines():
@@ -2422,6 +2422,7 @@ def main() -> int:
             mod.launches = 0
         for mod in (cmd, cme):
             mod.hcomp_launches.update(fast=0, interp=0)
+            mod.combine_launches.update(fast=0, generic=0)
         t0 = time.perf_counter()
         elsewhere = fn()
         torch.cuda.synchronize()
@@ -2431,6 +2432,10 @@ def main() -> int:
             check(mod.hcomp_launches == {"fast": mod.launches, "interp": 0},
                   f"the {what}'s {name} launches did not all run the "
                   f"specialised HCOMP step: {mod.hcomp_launches}")
+            check(mod.combine_launches == {"fast": mod.launches,
+                                           "generic": 0},
+                  f"the {what}'s {name} launches did not all run the "
+                  f"specialised combine: {mod.combine_launches}")
         got["cm_encode"] += elsewhere
         log(f"{what} launches: {got}"
             + (f" ({elsewhere} cm_encode in the ranks' processes)"

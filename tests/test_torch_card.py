@@ -793,6 +793,80 @@ def test_cm_hcomp_fast_equals_interp(card, method, count):
     assert cme.hcomp_launches["interp"] == before["interp"] + 1
 
 
+# ---------------------------------------------------------------------------
+# the combine: the generated straight-line code against the generic walk
+
+
+@pytest.mark.parametrize("method", ["3", "4", "5", "4.0", "5.0"])
+@pytest.mark.parametrize("count", ["1", "lpb", "lpb+1"])
+def test_cm_combine_fast_equals_generic(card, method, count):
+    """At 1 lane, one block's lanes and one lane into a second block, the
+    generated combine and the generic one forced each code and decode
+    every lane as the host engine does; each launch counts under its
+    combine."""
+    ref, _ = ref_make_model(method)
+    model = convert.model_from_reference_header(ref.header_bytes())
+    lpb = Placement(model, "fast").lanes_per_block
+    L = {"1": 1, "lpb": lpb, "lpb+1": lpb + 1}[count]
+    rng = np.random.default_rng(100 + L)
+    raws = [b"Combine %d: " % k + b"the dog, the Dog; THE DOG " * int(k % 4)
+            + rng.integers(0, 256, int(k % 7), dtype=np.uint8).tobytes()
+            for k in range(L)]
+    prefix = _prefix(ref)
+    packed = cme.pack_payloads([prefix + r for r in raws], card)
+    coded = _coded(ref, raws)
+    streams = cmd.pack_streams(coded, [len(prefix) + len(r) + 64
+                                       for r in raws], card)
+    before = (dict(cme.combine_launches), dict(cmd.combine_launches))
+    for combine, want in ((None, "fast"), ("generic", "generic")):
+        enc = cme.Launch(model, *packed, combine=combine).run()
+        dec = cmd.Launch(model, *streams, combine=combine).run()
+        assert (enc.combine, dec.combine, enc.hcomp) == (want, want, "fast")
+        assert cmd.lanes_to_bytes(*enc.result()) == [c[:-6] for c in coded]
+        assert cmd.lanes_to_bytes(*dec.result()) == [prefix + r
+                                                     for r in raws]
+    for mod, old in zip((cme, cmd), before):
+        assert mod.combine_launches == {k: v + 1 for k, v in old.items()}
+
+
+@pytest.mark.parametrize("method", ["3", "4", "5", "4.0", "5.0"])
+def test_cm_combine_keeps_the_placement(card, method):
+    """A launch's placement is the same with either combine: the generated
+    code reads the rows where the generic walk reads them."""
+    ref, _ = ref_make_model(method)
+    model = convert.model_from_reference_header(ref.header_bytes())
+    packed = cme.pack_payloads([_prefix(ref) + b"placement"], card)
+    a, b = (cme.Launch(model, *packed, combine=c).plan
+            for c in ("fast", "generic"))
+    assert a.lanes_per_block == b.lanes_per_block == {
+        "3": 57, "4": 6, "5": 5, "4.0": 6, "5.0": 5}[method]
+    assert (a.G, a.lane_words, a.rows, a.geo, a.smem) \
+        == (b.G, b.lane_words, b.rows, b.geo, b.smem)
+
+
+def test_cm_combine_interp_hcomp_and_generic_combine(card):
+    """The four pairings of HCOMP step and combine at -m4 over a block's
+    lanes and one more code the same bytes."""
+    ref, _ = ref_make_model("4.0")
+    model = convert.model_from_reference_header(ref.header_bytes())
+    raws = [b"pairing %d " % k * (k + 1) for k in range(7)]
+    prefix = _prefix(ref)
+    packed = cme.pack_payloads([prefix + r for r in raws], card)
+    coded = _coded(ref, raws)
+    streams = cmd.pack_streams(coded, [len(prefix) + len(r) + 64
+                                       for r in raws], card)
+    for hcomp in ("fast", "interp"):
+        for combine in ("fast", "generic"):
+            enc = cme.Launch(model, *packed, hcomp=hcomp,
+                             combine=combine).run()
+            dec = cmd.Launch(model, *streams, hcomp=hcomp,
+                             combine=combine).run()
+            assert cmd.lanes_to_bytes(*enc.result()) == [c[:-6]
+                                                         for c in coded]
+            assert cmd.lanes_to_bytes(*dec.result()) == [prefix + r
+                                                         for r in raws]
+
+
 def test_cm_rejected_program_runs_the_interpreter(card):
     """A looping program is outside the specialisable subset: a launch
     runs the interpreter, and asking for the specialised step raises."""

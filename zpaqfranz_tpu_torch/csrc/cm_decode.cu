@@ -26,6 +26,15 @@ typedef FastStep<HcompFast> Step;
 typedef Interp Step;
 #endif
 
+// The combine: the generic walk, or the model's combine that ops/build.py
+// compiles in from the same generated header (struct CombineFast, from
+// ops/combine_fast.py, defined with CM_COMBINE_FAST).
+#ifdef CM_COMBINE_FAST
+typedef FastCombine<CombineFast> Combine;
+#else
+typedef GenericCombine Combine;
+#endif
+
 struct Dec {
   u32 low, high, curr;
   i64 pos, len;
@@ -102,7 +111,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     if (go != 0) break;
     u32 c = 1;
     while (c < 256) {
-      const int y = code_bit(s, m, step, [&](u32 pr) {
+      const int y = code_bit<Combine>(s, m, step, [&](u32 pr) {
         return decode_bit(d, s.status, pr);
       });
       if (s.status != ST_OK) break;

@@ -28,6 +28,15 @@ typedef FastStep<HcompFast> Step;
 typedef Interp Step;
 #endif
 
+// The combine: the generic walk, or the model's combine that ops/build.py
+// compiles in from the same generated header (struct CombineFast, from
+// ops/combine_fast.py, defined with CM_COMBINE_FAST).
+#ifdef CM_COMBINE_FAST
+typedef FastCombine<CombineFast> Combine;
+#else
+typedef GenericCombine Combine;
+#endif
+
 struct Enc {
   u32 low, high;
   u8* dst;
@@ -75,7 +84,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     const u32 c = src[j];
     for (int k = 7; k >= 0 && s.status == ST_OK; --k) {
       const int y = (c >> k) & 1;
-      code_bit(s, m, step, [&](u32 pr) {
+      code_bit<Combine>(s, m, step, [&](u32 pr) {
         if (first) encode_bit(e, s.status, 0, 0);   // not the end of segment
         if (s.status == ST_OK) encode_bit(e, s.status, y, pr);
         return y;

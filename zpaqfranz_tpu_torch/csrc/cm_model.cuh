@@ -28,9 +28,14 @@
 //   row of 32 counters (its interpolation picks two by the input's
 //   prediction) into shared memory, from device memory with cp.async. (b)
 //   Thread 0 of the group walks the combine (AVG, MIX2, MIX, ISSE, SSE) in
-//   component order from shared memory, one packed step per component, and
-//   runs the range coder step; MIX's dot product is summed in uint32 so
-//   that it is exact in any order. (c) Every thread updates its own
+//   component order from shared memory and runs the range coder step;
+//   MIX's dot product is summed in uint32 so that it is exact in any
+//   order. The combine is a policy of the kernels (template parameter
+//   Combine): FastCombine runs the model's combine as straight-line code
+//   that ops/combine_fast.py generates, the loads that do not depend on
+//   the bit issued ahead of the chain and the steps' outputs in registers;
+//   GenericCombine (phase_b) walks one packed step per component, for the
+//   models the generator refuses. (c) Every thread updates its own
 //   components, and the group the MIX rows and SSE counters: each
 //   component owns its tables, so the updates run in parallel and need no
 //   second read of the values (a) loaded. Phase (c) of one bit and phase
@@ -61,8 +66,8 @@
 //   rejects, with a per-launch step limit.
 //
 // What bounds it now: the chain of dependent instructions on thread 0 (the
-// combine), then HCOMP where it is interpreted (PERF.md; chip_smoke.py
-// prints the profiled phases).
+// combine and the coder step), phases (a) and (c), then HCOMP where it is
+// interpreted (PERF.md; chip_smoke.py prints the profiled phases).
 
 #pragma once
 
@@ -386,6 +391,24 @@ __device__ __forceinline__ int phase_b(Lane& s, const Model& m) {
   return squash(m, last == m.n - 1 ? lastp : p[m.n - 1]);
 }
 
+// The combine a kernel runs in phase (b), a policy of the kernels (template
+// parameter Combine) as the HCOMP step is: GenericCombine walks the model's
+// steps with phase_b; FastCombine<C> runs the model's combine as the
+// straight-line code that ops/combine_fast.py generates (struct
+// CombineFast), with the same result and side effects.
+struct GenericCombine {
+  __device__ __forceinline__ static int run(Lane& s, const Model& m) {
+    return phase_b(s, m);
+  }
+};
+
+template <class C>
+struct FastCombine {
+  __device__ __forceinline__ static int run(Lane& s, const Model& m) {
+    return C::run(s.p, s.wa, s.wb, s.sw, s.cxt, s.h, s.c8, m.sq, m.st);
+  }
+};
+
 // Phase (c): every thread updates its components toward bit y, in one
 // instruction stream for every type as in phase (a); the group updates
 // the MIX rows and SSE counters, each element by the thread that copied it.
@@ -688,19 +711,19 @@ __device__ __forceinline__ void tail(Lane& s, const Model& m, Step& step,
   mark(s, P_TAIL);
 }
 
-// One coded bit of the lane, whose phase (a) has run: the combine and
-// coder step on thread 0 (``coder(pr)`` returns the bit and may set
-// s.status), phase (c), the tail, and phase (a) of the next bit, which
-// overlaps other threads' phase (c): the predictions swap buffers every
-// bit, and each thread reads back only the table entries and row copies it
-// wrote itself. Returns the bit; s.status is the group's.
-template <class Step, class Coder>
+// One coded bit of the lane, whose phase (a) has run: the combine
+// (``Combine``) and coder step on thread 0 (``coder(pr)`` returns the bit
+// and may set s.status), phase (c), the tail, and phase (a) of the next
+// bit, which overlaps other threads' phase (c): the predictions swap
+// buffers every bit, and each thread reads back only the table entries and
+// row copies it wrote itself. Returns the bit; s.status is the group's.
+template <class Combine, class Step, class Coder>
 __device__ __forceinline__ int code_bit(Lane& s, const Model& m, Step& step,
                                         Coder&& coder) {
   gsync(s);
   mark(s, P_WAIT_A);
   if (s.k == 0) {
-    const u32 pr = u32(phase_b(s, m)) * 2u + 1u;
+    const u32 pr = u32(Combine::run(s, m)) * 2u + 1u;
     const int y = s.status == ST_OK ? coder(pr) : 0;
     s.misc[0] = u32(y);
     s.misc[1] = u32(s.status);

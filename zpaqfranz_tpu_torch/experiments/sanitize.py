@@ -794,16 +794,12 @@ def cm_models() -> Dict[str, object]:
 
 
 def cm_units(models) -> list:
-    """Every CM build unit the matrix launches: both kernels interpreted,
-    and specialised for each model's HCOMP program."""
-    from ..ops.hcomp_fast import try_compile
-    units = ["cm_decode", "cm_encode"]
-    for model in models.values():
-        fast = try_compile(model)
-        if fast is not None:
-            units += [(k, fast.cuda_source())
-                      for k in ("cm_decode", "cm_encode")]
-    return units
+    """Every CM build unit the matrix launches: both kernels for each
+    model, with its HCOMP program specialised and interpreted (each with
+    the model's combine specialised where the generator accepts it)."""
+    from ..ops.cm_model import kernel_unit
+    return [kernel_unit(k, model, hcomp) for model in models.values()
+            for hcomp in (None, "interp") for k in ("cm_decode", "cm_encode")]
 
 
 def cm_cases(torch, dev, rng) -> Iterable[Case]:

@@ -8,13 +8,16 @@ an edited source or header rebuilds and an unchanged one loads at once.
 Nothing is built at import time: a wrapper builds its kernel the first time
 it launches it.
 
-The CM kernels are also built once per HCOMP program that
-``ops/hcomp_fast.py`` specialises: the generated header
-(``build/hcomp-<digest>.cuh``, ``struct HcompFast``) and a three-line unit
-that includes it before the kernel's source (``build/<kernel>-<digest>.cu``)
-go to the build directory, and the library's name hashes the source, the
-headers and the generated text. A kernel is named by a *unit*: its name, or
-``(name, generated header text)``.
+The CM kernels are also built once per model whose HCOMP program
+``ops/hcomp_fast.py`` or whose combine ``ops/combine_fast.py`` specialises:
+the generated header (``build/gen-<digest>.cuh``: ``struct HcompFast``
+with ``CM_HCOMP_FAST`` defined, ``struct CombineFast`` with
+``CM_COMBINE_FAST``, or both; ``cm_model.kernel_unit`` writes it) and a
+two-line unit that includes it before the kernel's source
+(``build/<kernel>-<digest>.cu``) go to the build directory, and the
+library's name hashes the source, the headers and the generated text. A
+kernel is named by a *unit*: its name, or ``(name, generated header
+text)``.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: seconds and ptxas report of the builds done by this process, by unit key
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 
-#: a kernel's name, or (name, generated HCOMP header) for a specialised one
+#: a kernel's name, or (name, generated header) for a specialised one
 Unit = Union[str, Tuple[str, str]]
 
 
@@ -86,7 +89,7 @@ def _lib_path(unit: Unit) -> pathlib.Path:
         h.update(header.read_bytes())
     if gen is not None:
         h.update(gen.encode())
-        name = f"{name}-hcomp"
+        name = f"{name}-gen"
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -107,10 +110,9 @@ def _source(unit: Unit) -> pathlib.Path:
     if gen is None:
         return CSRC / SOURCES[name]
     d = _digest(gen)
-    _write(BUILD_DIR / f"hcomp-{d}.cuh", gen)
+    _write(BUILD_DIR / f"gen-{d}.cuh", gen)
     cu = BUILD_DIR / f"{name}-{d}.cu"
-    _write(cu, f'#include "hcomp-{d}.cuh"\n#define CM_HCOMP_FAST 1\n'
-               f'#include "{SOURCES[name]}"\n')
+    _write(cu, f'#include "gen-{d}.cuh"\n#include "{SOURCES[name]}"\n')
     return cu
 
 
@@ -124,8 +126,9 @@ def _command(unit: Unit, out: pathlib.Path) -> List[str]:
 def build(units: Iterable[Unit] = tuple(SOURCES)
           ) -> Dict[str, pathlib.Path]:
     """Compile the kernels that are not built yet, one ``nvcc`` per unit,
-    all started together. Returns unit key -> library path."""
-    units = list(units)
+    all started together (a unit named twice builds once). Returns unit
+    key -> library path."""
+    units = list({unit_key(u): u for u in units}.values())
     paths = {unit_key(u): _lib_path(u) for u in units}
     todo = [u for u in units if not paths[unit_key(u)].exists()]
     if not todo:

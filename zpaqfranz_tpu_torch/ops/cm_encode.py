@@ -35,12 +35,15 @@ from .cm_model import (_M32, ST_CORRUPT, ST_OK, ST_OVERRUN, ST_ZPAQL,
 from .sha1 import pack_messages
 
 __all__ = ["Launch", "cm_encode", "cm_encode_plain", "CMEncodeError",
-           "lane_cap", "pack_payloads", "launches", "hcomp_launches"]
+           "lane_cap", "pack_payloads", "launches", "hcomp_launches",
+           "combine_launches"]
 
 #: kernel launches made by ``cm_encode`` in this process
 launches = 0
 #: ... of them by HCOMP step (``cm_model.HCOMP_STEPS``)
 hcomp_launches = {"fast": 0, "interp": 0}
+#: ... of them by combine (``cm_model.COMBINE_STEPS``)
+combine_launches = {"fast": 0, "generic": 0}
 
 _REASON = {ST_OVERRUN: "coded past its output capacity",
            ST_CORRUPT: "model has an unknown component",
@@ -88,6 +91,7 @@ class Launch(LaneLaunch):
         global launches
         launches += 1
         hcomp_launches[self.hcomp] += 1
+        combine_launches[self.combine] += 1
 
 
 # ---------------------------------------------------------------------------

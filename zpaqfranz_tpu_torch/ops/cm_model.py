@@ -16,6 +16,13 @@ interpreter (``"interp"``: in the kernels with a per-launch step limit,
 ``max_hcomp_steps``, 2^24 instructions for one byte by default; in the
 plain predictor the scalar ``zpaql.vm.VM`` per lane, without a limit).
 
+The kernels' combine (phase (b)) runs in one of two ways too: a model whose
+combine ``ops/combine_fast.try_compile`` accepts runs it as generated
+straight-line code (``"fast"``), any other through the generic walk over
+the model's steps (``"generic"``). Both give the same bits. The generated
+texts of a launch go into one build unit per kernel and model
+(``kernel_unit``).
+
 The plain predictor batches lanes in ``int64`` tensors (CPU ``uint32`` has
 no arithmetic) and keeps the arenas as ``uint8`` / ``int32`` tensors widened
 after each gather.
@@ -33,7 +40,7 @@ from .. import trace
 from ..models import tables as T
 from ..zpaql.header import Model
 from ..zpaql.vm import VM, ZPAQLRuntimeError
-from . import build
+from . import build, combine_fast
 from .hcomp_fast import try_compile
 
 #: held while a launch adds to its kernel's count (``counted``)
@@ -48,6 +55,8 @@ _NPAR = 6
 MAX_HCOMP_STEPS = 1 << 24
 #: the HCOMP steps of the lane kernels
 HCOMP_STEPS = ("fast", "interp")
+#: the combines of the lane kernels
+COMBINE_STEPS = ("fast", "generic")
 
 # combined LUT: squash(4096) | stretch(32768) | sns(1024), as codec_arena
 SQ_OFF = 0
@@ -170,6 +179,42 @@ def hcomp_step(model: Model, hcomp: Optional[str] = None) -> str:
         raise ValueError("the model's HCOMP program is outside the "
                          "specialisable subset")
     return hcomp
+
+
+def combine_step(model: Model, plan: "Placement",
+                 combine: Optional[str] = None) -> str:
+    """The combine a launch of ``model`` at placement ``plan`` runs:
+    ``"fast"`` when ``combine_fast.try_compile`` accepts the model, else
+    ``"generic"``; ``combine`` forces one ("fast" raises for a model the
+    generator refuses)."""
+    fast = combine_fast.try_compile(model, plan.rows) is not None
+    if combine is None:
+        return "fast" if fast else "generic"
+    if combine not in COMBINE_STEPS:
+        raise ValueError(f"combine must be one of {COMBINE_STEPS}, not "
+                         f"{combine!r}")
+    if combine == "fast" and not fast:
+        raise ValueError("the model's combine is outside what the "
+                         "generator specialises")
+    return combine
+
+
+def kernel_unit(kernel: str, model: Model, hcomp: Optional[str] = None,
+                combine: Optional[str] = None) -> build.Unit:
+    """The build unit of ``kernel`` (``"cm_decode"`` or ``"cm_encode"``)
+    that a launch of ``model`` runs with HCOMP step ``hcomp`` and combine
+    ``combine`` (None: each specialised where the model allows): the
+    kernel alone, or the kernel with the generated header that holds the
+    specialised HCOMP program, the specialised combine, or both."""
+    hcomp = hcomp_step(model, hcomp)
+    plan = Placement(model, hcomp)
+    parts = []
+    if hcomp == "fast":
+        parts += [try_compile(model).cuda_source(), "#define CM_HCOMP_FAST 1"]
+    if combine_step(model, plan, combine) == "fast":
+        parts += [combine_fast.try_compile(model, plan.rows).cuda_source(),
+                  "#define CM_COMBINE_FAST 1"]
+    return (kernel, "\n".join(parts) + "\n") if parts else kernel
 
 
 def lane_bytes(model: Model, hcomp: str = "interp") -> int:
@@ -446,7 +491,10 @@ class LaneLaunch:
     specialised when ``try_compile`` accepts it, else the interpreter, as
     the reference's ``ArenaCoder`` does; ``"interp"`` forces the
     interpreter, so that the two can be held against each other on the
-    card. ``self.hcomp`` records the step. ``max_hcomp_steps`` bounds the
+    card. ``self.hcomp`` records the step. ``combine`` is the combine
+    (``combine_step``): None runs the generated one where the generator
+    accepts the model, ``"generic"`` forces the generic walk;
+    ``self.combine`` records it. ``max_hcomp_steps`` bounds the
     instructions an interpreted run may execute for one byte (default
     ``MAX_HCOMP_STEPS``): past it the lane fails as a runaway program. A
     specialised program has no loops and no limit.
@@ -462,13 +510,14 @@ class LaneLaunch:
     def __init__(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
                  in_len: torch.Tensor, out_cap: torch.Tensor,
                  profile: bool = False, hcomp: Optional[str] = None,
-                 max_hcomp_steps: Optional[int] = None):
+                 max_hcomp_steps: Optional[int] = None,
+                 combine: Optional[str] = None):
         check_lanes(model, src, in_off, in_len, out_cap)
         if src.device.type != "cuda":
             raise ValueError(f"no {self.kernel} kernel for device "
                              f"{src.device}")
         self.prepare(model, src, in_off, in_len, out_cap, profile, hcomp,
-                     max_hcomp_steps)
+                     max_hcomp_steps, combine)
 
     @classmethod
     def code(cls, model: Model, src: torch.Tensor, in_off: torch.Tensor,
@@ -480,13 +529,14 @@ class LaneLaunch:
         with trace.span("cm.launch", lanes=int(in_off.shape[0])) as sp:
             launch = cls(model, src, in_off, in_len, out_cap,
                          max_hcomp_steps=max_hcomp_steps).run()
-            sp.add(hcomp=launch.hcomp)
+            sp.add(hcomp=launch.hcomp, combine=launch.combine)
         return launch.result()
 
     def prepare(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
                 in_len: torch.Tensor, out_cap: torch.Tensor,
                 profile: bool = False, hcomp: Optional[str] = None,
-                max_hcomp_steps: Optional[int] = None) -> None:
+                max_hcomp_steps: Optional[int] = None,
+                combine: Optional[str] = None) -> None:
         """Build the launch's arguments on the inputs' device."""
         dev = src.device
         L = in_off.shape[0]
@@ -504,9 +554,9 @@ class LaneLaunch:
         lay = Layout(model)
         self.hcomp = hcomp_step(model, hcomp)
         self.plan = plan = Placement(model, self.hcomp)
-        #: the build unit: the kernel, or the kernel with the program
-        self.unit = self.kernel if self.hcomp == "interp" else (
-            self.kernel, try_compile(model).cuda_source())
+        self.combine = combine_step(model, plan, combine)
+        #: the build unit: the kernel, or the kernel with the generated code
+        self.unit = kernel_unit(self.kernel, model, self.hcomp, self.combine)
         comps = np.zeros((model.n, _NPAR), np.int32)
         for i, cp in enumerate(lay.comps):
             comps[i, :len(cp)] = cp

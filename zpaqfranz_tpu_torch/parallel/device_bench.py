@@ -330,9 +330,9 @@ def calibrate(device=None, host_only: bool = False,
     if dev is not None and dev.type == "cuda":
         # every unit the stages launch, built in parallel up front
         from ..ops import build
-        from ..ops.hcomp_fast import try_compile
+        from ..ops.cm_model import kernel_unit
         build.build(["sha1_lanes"] + [
-            (kernel, try_compile(make_model(m)[0]).cuda_source())
+            kernel_unit(kernel, make_model(m)[0])
             for m in CAL_METHODS for kernel in ("cm_decode", "cm_encode")])
     res = run_ladder(budget_s=budget_s, stage_timeout=180.0,
                      ladder=calibration_ladder(dev), device=dev,
