@@ -105,7 +105,8 @@ def test_spans_nest_add_counts_and_record_errors():
 def test_pool_threads_record_under_the_parent_they_are_handed():
     def work(parent):
         with trace.span("job", parent=parent):
-            time.sleep(0.001)
+            with trace.span("inner"):    # under the span it was handed
+                time.sleep(0.001)
         with trace.span("orphan"):       # no parent: the profiler is off here
             pass
         return trace.current()
@@ -117,6 +118,8 @@ def test_pool_threads_record_under_the_parent_they_are_handed():
     jobs = [r for r in trace.records() if r.name == "job"]
     assert len(jobs) == 4 and {r.parent for r in jobs} == {op.id}
     assert all(r.thread != op.thread for r in jobs)
+    inner = [r for r in trace.records() if r.name == "inner"]
+    assert sorted(r.parent for r in inner) == sorted(r.id for r in jobs)
     assert "orphan" not in {r.name for r in trace.records()}
     check_tree(trace.records())
 
@@ -186,6 +189,45 @@ def test_add_records_its_layers_under_op_a(tmp_path, monkeypatch,
     assert names.count("add.assemble") == names.count("add.spill") - 1
     commit = next(r for r in recs if r.name == "add.commit")
     assert commit.counts["bytes"] == (tmp_path / "t.zpaq").stat().st_size
+
+
+def bwt_tree(tmp_path):
+    (tmp_path / "tree").mkdir()
+    (tmp_path / "tree" / "a.txt").write_bytes(b"banana bandana " * 3)
+    (tmp_path / "tree" / "b.txt").write_bytes(b"the bwt lane")
+
+
+@pytest.mark.parametrize("engine", ["-notpu", "-tpu"])
+def test_bwt_is_recorded_under_add_prepare(tmp_path, monkeypatch,
+                                           lanes_on_cpu, engine):
+    """A tiny ``-method 3.0`` add: one ``pre.bwt`` with the job's raw
+    bytes inside each ``add.prepare``, on the host engine's pool threads
+    (handed ``op.a``) and on the card path (the plain CM coder)."""
+    monkeypatch.chdir(tmp_path)
+    bwt_tree(tmp_path)
+    with profiled():
+        assert cli.main(["a", "t.zpaq", "tree", "-method", "3.0",
+                         engine]) == 0
+    recs = trace.records()
+    check_tree(recs)
+    prepares = {r.id: r for r in recs if r.name == "add.prepare"}
+    bwts = [r for r in recs if r.name == "pre.bwt"]
+    assert len(prepares) == len(bwts) == 1
+    assert sorted(r.parent for r in bwts) == sorted(prepares)
+    for r in bwts:
+        assert r.counts == {"bytes": prepares[r.parent].counts["raw"]}
+    assert sum(r.counts["bytes"] for r in bwts) == 57
+    op = next(r for r in recs if r.name == "op.a")
+    assert all(r.parent == op.id for r in prepares.values())
+
+
+def test_bwt_span_records_nothing_with_tracing_off(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    bwt_tree(tmp_path)
+    assert trace.span("pre.bwt", bytes=1) is trace.OFF
+    assert cli.main(["a", "t.zpaq", "tree", "-method", "3.0",
+                     "-notpu"]) == 0
+    assert trace.records() == [] and trace.dropped() == 0
 
 
 def test_x_records_its_layers_under_op_x(tmp_path, monkeypatch,

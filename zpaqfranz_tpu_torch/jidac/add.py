@@ -29,7 +29,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import native, trace
-from ..codec.methods import make_model
+from ..codec.methods import MethodError, make_model
 from ..zpaql.header import Model
 from .index import DT, HT, Jidac, read_archive
 
@@ -122,19 +122,23 @@ _STORE_MODEL = Model(hh=0, hm=0)
 
 
 def _compress_d_block(model: Optional[Model], pre, job: _Job,
-                      date: int, verify: bool = False) -> bytes:
+                      date: int, verify: bool = False,
+                      parent=None) -> bytes:
     """Host-path d-block compression: the same prepare_payload decision
     as the device lanes (parallel/engine.py), coded by the native engine.
 
     ``verify``: run the postprocessor inverse over the transformed payload
     and compare against the original before writing — the analog of the
     reference Compressor::setVerify (libzpaq.h:513-531), which round-trips
-    the preprocessor during compression instead of after the fact."""
+    the preprocessor during compression instead of after the fact.
+    ``parent``: the span of the thread that handed over the job."""
     from ..parallel.engine import prepare_payload
-    raw = job_bytes(job)
+    with trace.span("add.prepare", parent=parent) as sp:
+        raw = job_bytes(job)
+        payload, store = prepare_payload(pre, raw)
+        sp.add(raw=len(raw), coded=len(payload), store=int(store))
     comment = b"%d jDC\x01" % len(raw)
     name = _jdc_name(date, "d", job.first_frag)
-    payload, store = prepare_payload(pre, raw)
     if store:
         return native.compress_block(_STORE_MODEL, raw, name, comment)
     if verify:
@@ -288,24 +292,70 @@ def diff_index(jd: Jidac, ext: Dict[str, Tuple[int, int, int]],
 # Stage 3: deterministic fragment-ID assignment and d-block packing
 # ---------------------------------------------------------------------------
 
+#: room a BWT block (transform 3) leaves below 2^block_bits: its stored
+#: postprocessor buffers the n + 5 input bytes in M and 256 + n + 8 cells
+#: in H, both of 2^block_bits entries (``bwt_pcomp_source``)
+BWT_SLACK = 4096
+
+
+def block_cap(pre) -> int:
+    """Raw bytes at which a d-block job closes. A BWT job closes before it
+    would pass the cap, so that its block decodes by its own header
+    (``ph = pm = block_bits``); any other job once it reaches the cap."""
+    cap = min(1 << pre.block_bits, 1 << 24)
+    if pre.transform == 3:
+        cap = min(cap, (1 << pre.block_bits) - BWT_SLACK)
+    return cap
+
+
+def max_fragment_bytes(fragment_bits: int) -> int:
+    """The native CDC's longest fragment: 8x its mean (2^fragment_bits, at
+    least 2^6) plus 4 KiB."""
+    return (8 << max(fragment_bits, 6)) + 4096
+
+
+def max_job_bytes(pre, fragment_bits: int) -> int:
+    """Most raw bytes a ``FragmentPlanner`` job can hold: ``block_cap`` for
+    a BWT job, else within one fragment past the cap. Raises
+    ``MethodError`` for a BWT method whose block a single fragment could
+    outgrow (a ``-fragment`` whose largest fragment passes the cap), so an
+    add refuses it before anything is written."""
+    cap = block_cap(pre)
+    if pre.transform == 3:
+        if max_fragment_bytes(fragment_bits) > cap:
+            raise MethodError(
+                f"a fragment of up to {max_fragment_bytes(fragment_bits)} "
+                f"bytes does not fit a BWT block of {cap}: use a smaller "
+                "-fragment or larger blocks")
+        return cap
+    return cap - 1 + max_fragment_bytes(fragment_bits)
+
+
 class FragmentPlanner:
     """Replays the serial dedup/packing decision: fragments are offered in
-    global file order; new hashes get ascending IDs; jobs close when the
-    block cap fills. Both the single-host add() and every host of the
-    distributed add run this identical logic, which is what makes archive
-    bytes host-count invariant (SURVEY.md section 7 hard part 6)."""
+    global file order; new hashes get ascending IDs; jobs close at the
+    method's ``block_cap``. Both the single-host add() and every host of
+    the distributed add run this identical logic, which is what makes
+    archive bytes host-count invariant (SURVEY.md section 7 hard part 6)."""
 
-    def __init__(self, dedup: Dict[bytes, int], next_frag: int,
-                 block_cap: int, keep_bytes: bool = True):
+    def __init__(self, dedup: Dict[bytes, int], next_frag: int, pre,
+                 keep_bytes: bool = True):
         self.dedup = dedup
         self.next_frag = next_frag
-        self.block_cap = block_cap
+        self.block_cap = block_cap(pre)
+        self.bounded = pre.transform == 3
         self.keep_bytes = keep_bytes
         self.first_frag = next_frag
         self.new_ht: List[HT] = []
         self.file_ptrs: Dict[str, List[int]] = {}
         self.cur = _Job(first_frag=next_frag, frags=[], data=bytearray())
         self._cur_bytes = 0
+
+    def _close(self) -> _Job:
+        job = self.cur
+        self.cur = _Job(first_frag=self.next_frag, frags=[], data=bytearray())
+        self._cur_bytes = 0
+        return job
 
     def add_file(self, name: str, frags: Sequence[Tuple[bytes, int, int]],
                  data: Optional[bytes]) -> List[_Job]:
@@ -316,6 +366,9 @@ class FragmentPlanner:
         for sha, start, end in frags:
             fid = self.dedup.get(sha)
             if fid is None:
+                if (self.bounded and self.cur.frags and
+                        self._cur_bytes + end - start > self.block_cap):
+                    done.append(self._close())
                 fid = self.next_frag
                 self.next_frag += 1
                 self.dedup[sha] = fid
@@ -326,24 +379,13 @@ class FragmentPlanner:
                 self.cur.spans.append((name, start, end))
                 self._cur_bytes += end - start
                 if self._cur_bytes >= self.block_cap:
-                    done.append(self.cur)
-                    self.cur = _Job(first_frag=self.next_frag, frags=[],
-                                    data=bytearray())
-                    self._cur_bytes = 0
+                    done.append(self._close())
             ptrs.append(fid)
         self.file_ptrs[name] = ptrs
         return done
 
     def finish(self) -> Optional[_Job]:
         return self.cur if self.cur.frags else None
-
-
-def max_job_bytes(block_cap: int, fragment_bits: int) -> int:
-    """Most raw bytes a ``FragmentPlanner`` job can hold: it closes once it
-    reaches ``block_cap``, so it ends within one fragment past the cap, and
-    the native CDC cuts a fragment at 8x its mean (2^fragment_bits, at
-    least 2^6) plus 4 KiB."""
-    return block_cap - 1 + (8 << max(fragment_bits, 6)) + 4096
 
 
 def job_bytes(job: _Job) -> bytes:
@@ -862,13 +904,14 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     with one lane per d block of the changed files' bytes. Both write the
     same archive bytes; store-coded methods (-m0..-m2) and streaming-format
     adds always use the host engine."""
+    model, pre = make_model(method)   # raises for not-yet-supported methods
+    streaming = method.lstrip().startswith("s")
+    if not streaming:
+        max_job = max_job_bytes(pre, fragment_bits)  # raises: nothing written
     ctx = open_for_append(archive, key=key, notrim=notrim,
                           index_path=index_path)
     jd = ctx.jd
 
-    model, pre = make_model(method)   # raises for not-yet-supported methods
-    block_cap = min(1 << pre.block_bits, 1 << 24)  # >= threads jobs in flight
-    streaming = method.lstrip().startswith("s")
     coded = not streaming and model is not None and model.n > 0
     dev = None
     if use_device and coded:
@@ -881,8 +924,8 @@ def add(archive: str, files: Sequence[str], method: str = "1",
         est_bytes = sum(ext[n][1] for n in changed)
         sp.add(files=len(changed), bytes=est_bytes)
     if use_device is None and coded and changed:
-        dev = _gated_device(model, method, est_bytes, block_cap,
-                            fragment_bits, device)
+        dev = _gated_device(model, method, est_bytes, block_cap(pre),
+                            max_job, device)
     date = pick_date(jd, date)
     journal = None
     if resume:
@@ -896,13 +939,13 @@ def add(archive: str, files: Sequence[str], method: str = "1",
 
     if streaming:
         # true streaming-format blocks (`a -m s...`): no dedup/journaling
-        return add_streaming(ctx, model, pre, changed, ext, block_cap,
+        return add_streaming(ctx, model, pre, changed, ext, block_cap(pre),
                              tmp=tmp, progress=progress)
 
     # keep_bytes=False: jobs carry (file, start, end) spans, not bytes —
     # the compressing thread re-materializes from the page cache, so the
     # planner never holds fragment data (bounded-RAM add, VERDICT r3 #4)
-    planner = FragmentPlanner(old_dedup_table(jd), len(jd.ht), block_cap,
+    planner = FragmentPlanner(old_dedup_table(jd), len(jd.ht), pre,
                               keep_bytes=False)
     jobs: List[_Job] = []
 
@@ -938,12 +981,12 @@ def add(archive: str, files: Sequence[str], method: str = "1",
                 data.close()
         return nbytes, (crc, xxh), frags
 
-    def _compress_job(job: "_Job") -> bytes:
+    def _compress_job(job: "_Job", parent) -> bytes:
         if journal is not None:
             hit = journal.get(job)
             if hit is not None:
                 return hit
-        blk = _compress_d_block(model, pre, job, date, verify)
+        blk = _compress_d_block(model, pre, job, date, verify, parent)
         if journal is not None:
             journal.put(job, blk)
         return blk
@@ -998,13 +1041,13 @@ def add(archive: str, files: Sequence[str], method: str = "1",
             from ..parallel.engine import encode_jidac_blocks
             for blk in encode_jidac_blocks(
                     model, pre, planned_jobs(), date, _jdc_name, dev,
-                    max_job_bytes(block_cap, fragment_bits), verify=verify,
-                    journal=journal):
+                    max_job, verify=verify, journal=journal):
                 with trace.span("add.spill"):
                     spill.append(blk)
         else:
             for job in planned_jobs():
-                d_futs.append(cx.submit(_compress_job, job))
+                d_futs.append(cx.submit(_compress_job, job,
+                                        trace.current()))
                 drain(block=False)
             drain(block=True)
 
@@ -1025,17 +1068,18 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     return len(changed), len(planner.new_ht), nbytes
 
 
-def _gated_device(model: Model, method: str, est_bytes: int, block_cap: int,
-                  fragment_bits: int, device):
+def _gated_device(model: Model, method: str, est_bytes: int, cap: int,
+                  max_job: int, device):
     """The engine gate's decision for an unforced add of ``est_bytes``
-    changed bytes at ``method``: one lane per ``block_cap`` bytes, at most
-    a launch's. Returns the card (``device``, resolved: raises without
-    one) or None (the host engine)."""
+    changed bytes at ``method``: one lane per ``cap`` bytes, at most a
+    launch's of jobs of up to ``max_job`` bytes. Returns the card
+    (``device``, resolved: raises without one) or None (the host
+    engine)."""
     from .. import device_policy
     from ..device import resolve
     from ..parallel.engine import encode_lane_io, gate_lanes
-    lanes = gate_lanes(model, -(-est_bytes // block_cap), encode_lane_io(
-        model, max_job_bytes(block_cap, fragment_bits)), device)
+    lanes = gate_lanes(model, -(-est_bytes // cap),
+                       encode_lane_io(model, max_job), device)
     if device_policy.resolve(None, "codec", est_bytes, method=method,
                              lanes=lanes):
         return resolve(device)

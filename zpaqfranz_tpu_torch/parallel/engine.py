@@ -298,8 +298,9 @@ def prepare_payload(pre, payload: bytes) -> Tuple[bytes, bool]:
             return payload, True
         return lz, False
     if pre.transform == 3:
-        src = native.e8e9_transform(payload) if pre.e8e9 else payload
-        return native.bwt_encode(src), False
+        with trace.span("pre.bwt", bytes=len(payload)):
+            src = native.e8e9_transform(payload) if pre.e8e9 else payload
+            return native.bwt_encode(src), False
     if pre.transform == 0 and pre.e8e9:
         return native.e8e9_transform(payload), False
     return payload, False

@@ -258,6 +258,7 @@ def dist_add(comm, archive: str, files: Sequence[str], method: str = "1",
 
     rank, world = comm.rank, comm.world
     model, pre = make_model(method)
+    max_job = jadd.max_job_bytes(pre, fragment_bits)  # raises: nothing written
     if use_device and model is not None and model.n > 0:
         from ..device import resolve
         device = resolve(device)      # no card: every rank raises here
@@ -289,8 +290,6 @@ def dist_add(comm, archive: str, files: Sequence[str], method: str = "1",
     date = plan["date"]
     if not changed and not plan["deleted"]:
         return (0, 0, 0)
-
-    block_cap = min(1 << pre.block_bits, 1 << 24)
 
     # ---- stage 1: digest my shard of the changed files --------------------
     # round robin by file index keeps the order reconstruction trivial
@@ -333,7 +332,7 @@ def dist_add(comm, archive: str, files: Sequence[str], method: str = "1",
         all_old_ids.update(m)
 
     planner = jadd.FragmentPlanner(dict(all_old_ids), plan["next_frag"],
-                                   block_cap, keep_bytes=False)
+                                   pre, keep_bytes=False)
     jobs: List[jadd._Job] = []
     file_sums: Dict[str, Tuple[int, int]] = {}
     for i, name in enumerate(changed):
@@ -351,7 +350,7 @@ def dist_add(comm, archive: str, files: Sequence[str], method: str = "1",
         from .engine import encode_jidac_blocks
         blocks = encode_jidac_blocks(
             model, pre, [job for _k, job in my_jobs], date, jadd._jdc_name,
-            device, jadd.max_job_bytes(block_cap, fragment_bits))
+            device, max_job)
         my_blocks = {k: blk for (k, _job), blk in zip(my_jobs, blocks)}
     else:
         my_blocks = {k: jadd._compress_d_block(model, pre, job, date)

@@ -16,8 +16,8 @@ record goes to an in-memory buffer that ``records()`` reads. Otherwise
 The profiler records per thread, and a thread pool does not copy the
 caller's context: work handed to a pool names its parent, taken with
 ``current()`` on the submitting thread, and records whenever that parent
-does. Spans are per operation, file, job, block, batch or launch, never
-per fragment or bit.
+does, with the spans opened inside it. Spans are per operation, file,
+job, block, batch or launch, never per fragment or bit.
 """
 
 from __future__ import annotations
@@ -183,14 +183,15 @@ def span(name: str, parent=None, **counts):
     """A span named ``name`` with ``counts``, as a context manager whose
     handle has ``add(**counts)``. It records when ``parent`` (a span of
     another thread: ``current()`` there, or the handle of a span opened
-    there) records, or else, with no parent, when the profiler
-    records on this thread, under this thread's innermost span."""
+    there) records, or else, with no parent, under this thread's
+    innermost span that records, or where there is none, when the
+    profiler records on this thread."""
     if parent is OFF:
         return OFF
     if parent is None:
-        if not _profiling():
-            return OFF
         parent = current()
+        if parent is None and not _profiling():
+            return OFF
     return Record(name, parent, counts)
 
 
