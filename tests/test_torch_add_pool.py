@@ -1,0 +1,207 @@
+"""The card add prepares its jobs (their bytes, the BWT or LZ77, the store
+test, a store block's coding) on the add's pool and takes them in job order
+(``parallel/engine.encode_jidac_blocks``): on the CPU through the card
+path's launch code (``device="cpu"``, each lane coded by the native engine),
+the archive is the host engine's at every pool size; a job's failure is
+raised from the ``a`` without a hang; a resumed add writes an uninterrupted
+add's bytes; and the trace holds one ``add.prepare_wait`` a job on the
+operation's thread."""
+
+import dataclasses
+import pathlib
+import threading
+
+import numpy as np
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+import zpaqfranz_tpu_torch.device as zdevice
+from benchmark import cells
+from benchmark.spans import Span, Trace
+from zpaqfranz_tpu_torch import cli, trace
+from zpaqfranz_tpu_torch.jidac import add as port_add
+from zpaqfranz_tpu_torch.ops import cm_encode as cme
+from zpaqfranz_tpu_torch.parallel import engine
+
+from test_torch_bwt_jobs import _native_lanes, _words
+
+DATE = 20260102030405
+#: BWT; E8E9 then BWT; the level-4 CM; LZ77 + CM, where the store can fire
+METHODS = ["3.0", "x0.7ci1", "4.0", "x0,1,4,0,3,16ci1"]
+FRAGMENT = 10                  # 1 KiB fragments: several to a job
+LIMIT = 60                     # seconds an add may take before it hangs
+
+
+@pytest.fixture()
+def tree(tmp_path, monkeypatch):
+    """~150 KB in jobs of at most 16 KiB: text, x86-like code, and one
+    incompressible file the LZ77 method's store takes."""
+    orig = port_add.make_model
+
+    def make(method):
+        model, pre = orig(method)
+        return model, dataclasses.replace(pre, block_bits=14)
+    monkeypatch.setattr(port_add, "make_model", make)
+    monkeypatch.setattr(cme, "cm_encode_plain", _native_lanes)
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(23)
+    src = tmp_path / "src"
+    (src / "sub").mkdir(parents=True)
+    (src / "a.txt").write_bytes(_words(rng, 20_000)[:70_000])
+    code = bytearray(rng.integers(0, 256, 30_000, dtype=np.uint8).tobytes())
+    for at in range(0, len(code) - 5, 97):
+        code[at:at + 5] = bytes([0xE8, code[at + 1], code[at + 2], 0, 0])
+    (src / "b.bin").write_bytes(bytes(code))
+    (src / "sub" / "c.rnd").write_bytes(
+        rng.integers(0, 256, 40_000, dtype=np.uint8).tobytes())
+    (src / "sub" / "d.txt").write_bytes(_words(rng, 3_000)[:12_000])
+    return src
+
+
+def card_add(name, method, threads, **kw):
+    return port_add.add(name, ["src"], method=method, date=DATE,
+                        fragment_bits=FRAGMENT, threads=threads,
+                        use_device=True, device="cpu", **kw)
+
+
+def bounded(fn):
+    """Run ``fn`` on a thread of its own; its result, or its exception,
+    within ``LIMIT`` seconds."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:        # noqa: BLE001 - handed back
+            out["error"] = e
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(LIMIT)
+    assert not t.is_alive(), f"hung for {LIMIT} s"
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+#: the preprocessor's entry, before any test's spy
+PREPARE = engine.prepare_payload
+
+
+def spy_prepares(monkeypatch, fail=None):
+    """Spy on ``prepare_payload``: each call's raw bytes, in the order of
+    the calls, and the store decisions. ``fail`` = (k, raw): the job of
+    those bytes raises ``job k failed``."""
+    seen = {"raws": [], "stored": 0}
+    lock = threading.Lock()
+
+    def spy(pre, raw):
+        with lock:
+            seen["raws"].append(raw)
+        if fail is not None and raw == fail[1]:
+            raise RuntimeError(f"job {fail[0]} failed")
+        payload, store = PREPARE(pre, raw)
+        with lock:
+            seen["stored"] += int(store)
+        return payload, store
+    monkeypatch.setattr(engine, "prepare_payload", spy)
+    return seen
+
+
+def jobs_in_order(monkeypatch, name, method):
+    """Each job's raw bytes, from an add on one pool worker."""
+    seen = spy_prepares(monkeypatch)
+    card_add(name, method, 1)
+    return seen["raws"]
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_card_add_writes_the_host_bytes_at_every_pool_size(tree, method,
+                                                           monkeypatch):
+    """One pool worker, four, and the host engine: the same archive."""
+    port_add.add("h.zpaq", ["src"], method=method, date=DATE,
+                 fragment_bits=FRAGMENT, use_device=False)
+    jobs = jobs_in_order(monkeypatch, "one.zpaq", method)
+    seen = spy_prepares(monkeypatch)
+    card_add("four.zpaq", method, 4)
+    assert len(jobs) >= 8 and sorted(seen["raws"]) == sorted(jobs)
+    assert (seen["stored"] > 0) == (method == "x0,1,4,0,3,16ci1")
+    host = pathlib.Path("h.zpaq").read_bytes()
+    assert pathlib.Path("one.zpaq").read_bytes() == host
+    assert pathlib.Path("four.zpaq").read_bytes() == host
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("k", [0, 5])
+def test_a_failed_job_is_raised_without_a_hang(tree, monkeypatch, threads,
+                                               k):
+    """The failing job's own error leaves the ``a``; nothing is written."""
+    jobs = jobs_in_order(monkeypatch, "u.zpaq", "3.0")
+    spy_prepares(monkeypatch, fail=(k, jobs[k]))
+    with pytest.raises(RuntimeError, match=f"job {k} failed"):
+        bounded(lambda: card_add("f.zpaq", "3.0", threads))
+    assert not pathlib.Path("f.zpaq").exists()
+    assert not pathlib.Path("f.zpaq.spill").exists()
+
+
+@pytest.mark.parametrize("method", ["3.0", "x0,1,4,0,3,16ci1"])
+def test_resumed_add_writes_the_uninterrupted_bytes(tree, monkeypatch,
+                                                    method):
+    """Launches of 2 lanes; the add fails at the 7th job and leaves the
+    journal of the 6 blocks taken before it; the resumed add prepares and
+    waits for only the rest, and writes the bytes of an add that never
+    stopped."""
+    monkeypatch.setattr(engine, "lanes_per_launch", lambda *a: 2)
+    jobs = jobs_in_order(monkeypatch, "u.zpaq", method)
+    spy_prepares(monkeypatch, fail=(6, jobs[6]))
+    with pytest.raises(RuntimeError, match="job 6 failed"):
+        bounded(lambda: card_add("r.zpaq", method, 4, resume=True))
+    journal = port_add.ResumeJournal.load_or_create(
+        pathlib.Path("r.zpaq.resume"), DATE, method)
+    kept = len(journal.cache)
+    journal._f.close()
+    assert kept == 6
+    seen = spy_prepares(monkeypatch)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        card_add("r.zpaq", method, 4, resume=True)
+    waits = [r for r in trace.records() if r.name == "add.prepare_wait"]
+    trace.clear()
+    assert sorted(seen["raws"]) == sorted(jobs[6:])
+    assert len(waits) == len(jobs) - 6
+    assert pathlib.Path("r.zpaq").read_bytes() == \
+        pathlib.Path("u.zpaq").read_bytes()
+    assert not pathlib.Path("r.zpaq.resume").exists()
+
+
+def test_trace_holds_a_prepare_wait_a_job(tree, monkeypatch):
+    """Under the profiler: one ``add.prepare_wait`` a job on the
+    operation's thread, each ``add.prepare`` on a pool thread under
+    ``op.a`` with its ``pre.bwt`` inside it, and ``add.prepare_wait_ms``
+    reads the waits."""
+    orig = zdevice.resolve
+    monkeypatch.setattr(zdevice, "resolve",
+                        lambda device=None: orig("cpu" if device is None
+                                                 else device))
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert cli.main(["a", "t.zpaq", "src", "-method", "3.0", "-tpu",
+                         "-threads", "4", "-fragment", "0"]) == 0  # 2^10
+    recs = trace.records()
+    op = next(r for r in recs if r.name == "op.a")
+    waits = [r for r in recs if r.name == "add.prepare_wait"]
+    prepares = {r.id: r for r in recs if r.name == "add.prepare"}
+    bwts = [r for r in recs if r.name == "pre.bwt"]
+    assert len(waits) == len(prepares) == len(bwts) >= 8
+    assert all(r.thread == op.thread and r.parent == op.id for r in waits)
+    assert all(r.counts["ready"] in (0, 1) for r in waits)
+    assert all(r.parent == op.id and r.thread != op.thread
+               for r in prepares.values())
+    for r in bwts:
+        p = prepares[r.parent]
+        assert p.start <= r.start and r.end <= p.end
+    tr = Trace((op.start, op.end), [Span("op", op.start, op.end)], [], [],
+               {})
+    got = cells.reader("add.prepare_wait_ms")(tr)
+    trace.clear()
+    assert got == pytest.approx(
+        1000.0 * sum(r.seconds for r in waits)) and got > 0

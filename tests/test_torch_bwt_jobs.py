@@ -99,7 +99,7 @@ def _native_lanes(model, data, in_off, in_len, out_cap):
     take hours. The plain coder equals the native engine lane for lane
     (tests/test_torch_cm_encode.py)."""
     from zpaqfranz_tpu_torch.ops.cm_model import plain_result
-    prefix = len(b"\x01" + model.pcomp_bytes())
+    prefix = len(engine.selector(model))
     raw = data.numpy().tobytes()
     outs = []
     for off, n in zip(in_off.tolist(), in_len.tolist()):

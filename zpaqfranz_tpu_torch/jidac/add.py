@@ -994,7 +994,8 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     file_sums: Dict[str, Tuple[int, int]] = {}
     # compression overlaps the digest scan: each d-block job is submitted
     # the moment it fills (the reference's add() gets the same overlap
-    # from its per-block worker threads, SURVEY.md section 2.8)
+    # from its per-block worker threads, SURVEY.md section 2.8); on the
+    # card the same pool prepares the jobs' lanes
     cx_threads = threads or max(2, min(8, (os.cpu_count() or 4)))
     cx = _fut.ThreadPoolExecutor(max_workers=cx_threads)
     import collections
@@ -1041,7 +1042,8 @@ def add(archive: str, files: Sequence[str], method: str = "1",
             from ..parallel.engine import encode_jidac_blocks
             for blk in encode_jidac_blocks(
                     model, pre, planned_jobs(), date, _jdc_name, dev,
-                    max_job, verify=verify, journal=journal):
+                    max_job, verify=verify, journal=journal, pool=cx,
+                    window=2 * cx_threads):
                 with trace.span("add.spill"):
                     spill.append(blk)
         else:

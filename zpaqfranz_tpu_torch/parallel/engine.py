@@ -17,7 +17,10 @@ from __future__ import annotations
 import bisect
 import math
 import sys
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+from collections import deque
+from concurrent.futures import Executor, Future, ThreadPoolExecutor
+from typing import (Deque, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -318,7 +321,8 @@ def assemble_block(model: Model, coded: bytes, name: bytes,
 
 def encode_jidac_blocks(model: Model, pre, jobs: Iterable, date: int,
                         jdc_name, device: torch.device, max_job: int,
-                        verify: bool = False, journal=None
+                        verify: bool = False, journal=None,
+                        pool: Optional[Executor] = None, window: int = 2
                         ) -> Iterator[bytes]:
     """Compress jidac d-block jobs as lanes of the CM encode kernel on
     ``device``; yields the framed blocks in job order.
@@ -330,12 +334,56 @@ def encode_jidac_blocks(model: Model, pre, jobs: Iterable, date: int,
     pending lanes fill ``lanes_per_launch``, sized once for a job of
     ``max_job`` raw bytes (the largest the planner makes), which bounds the
     payloads held in memory. ``journal`` (``jidac.add.ResumeJournal``)
-    supplies blocks coded by an interrupted run and records new ones."""
+    supplies blocks coded by an interrupted run and records new ones.
+
+    Each job's host preparation (its bytes, the preprocessor, the store
+    test, ``verify``, a store block's coding) runs on ``pool`` (None: one
+    worker of its own), at most ``window`` jobs ahead of the oldest job
+    not yet taken. Results are taken in job order, so the lanes, the
+    launches and every byte written are the same for any pool; a job's
+    error is raised when it is the oldest."""
     from ..jidac.add import _STORE_MODEL, job_bytes, verify_payload
     prefix = selector(model)
     step = lanes_per_launch(model, encode_lane_io(model, max_job), device)
+    parent = trace.current()
+    own = None
+    if pool is None:
+        pool = own = ThreadPoolExecutor(max_workers=1)
+    # (job, its journal block, else the future of its preparation)
+    ahead: Deque[Tuple[object, Optional[bytes], Optional[Future]]] = deque()
     pending: List[Tuple[object, Optional[bytes], int]] = []
     payloads: List[bytes] = []
+
+    def prepare(job) -> Tuple[int, bytes, bool]:
+        """(raw length, the lane's payload or the store block, store)"""
+        with trace.span("add.prepare", parent=parent) as sp:
+            raw = job_bytes(job)
+            payload, store = prepare_payload(pre, raw)
+            sp.add(raw=len(raw), coded=len(payload), store=int(store))
+            if store:
+                return len(raw), native.compress_block(
+                    _STORE_MODEL, raw, jdc_name(date, "d", job.first_frag),
+                    b"%d jDC\x01" % len(raw)), True
+            if verify:
+                verify_payload(model, pre, raw, payload, job.first_frag)
+            return len(raw), prefix + payload, False
+
+    def take() -> Iterator[bytes]:
+        """The oldest job's result; a launch once the lanes fill one"""
+        job, block, fut = ahead.popleft()
+        raw_len = 0
+        if block is None:
+            with trace.span("add.prepare_wait", ready=int(fut.done())):
+                raw_len, out, store = fut.result()
+            if store:
+                block = out
+                if journal is not None:
+                    journal.put(job, block)
+            else:
+                payloads.append(out)
+        pending.append((job, block, raw_len))
+        if len(payloads) >= step:
+            yield from flush()
 
     def flush() -> Iterator[bytes]:
         coded = iter(encode_streams(model, payloads, device)
@@ -353,28 +401,23 @@ def encode_jidac_blocks(model: Model, pre, jobs: Iterable, date: int,
         pending.clear()
         payloads.clear()
 
-    for job in jobs:
-        block = journal.get(job) if journal is not None else None
-        raw_len = 0
-        if block is None:
-            with trace.span("add.prepare") as sp:
-                raw = job_bytes(job)
-                raw_len = len(raw)
-                payload, store = prepare_payload(pre, raw)
-                sp.add(raw=raw_len, coded=len(payload), store=int(store))
-                if store:
-                    block = native.compress_block(
-                        _STORE_MODEL, raw,
-                        jdc_name(date, "d", job.first_frag),
-                        b"%d jDC\x01" % raw_len)
-                    if journal is not None:
-                        journal.put(job, block)
-                else:
-                    if verify:
-                        verify_payload(model, pre, raw, payload,
-                                       job.first_frag)
-                    payloads.append(prefix + payload)
-        pending.append((job, block, raw_len))
-        if len(payloads) >= step:
-            yield from flush()
-    yield from flush()
+    def ready() -> bool:
+        _job, block, fut = ahead[0]
+        return block is not None or fut.done()
+
+    try:
+        for job in jobs:
+            block = journal.get(job) if journal is not None else None
+            ahead.append((job, block, None if block is not None
+                          else pool.submit(prepare, job)))
+            while ahead and (len(ahead) >= window or ready()):
+                yield from take()
+        while ahead:
+            yield from take()
+        yield from flush()
+    finally:
+        for _job, _block, fut in ahead:
+            if fut is not None:
+                fut.cancel()
+        if own is not None:
+            own.shutdown(wait=False)
