@@ -1,11 +1,11 @@
-"""The card add prepares its jobs (their bytes, the BWT or LZ77, the store
-test, a store block's coding) on the add's pool and takes them in job order
-(``parallel/engine.encode_jidac_blocks``): on the CPU through the card
-path's launch code (``device="cpu"``, each lane coded by the native engine),
-the archive is the host engine's at every pool size; a job's failure is
-raised from the ``a`` without a hang; a resumed add writes an uninterrupted
-add's bytes; and the trace holds one ``add.prepare_wait`` a job on the
-operation's thread."""
+"""The add prepares its jobs (their bytes, the BWT or LZ77, the store test,
+a store block's coding) on the add's pool and takes them in job order
+(``jidac/add.py`` ``code_jobs``), on the card and in the host engine
+alike: on the CPU through the card path's launch code (``device="cpu"``,
+each lane coded by the native engine), the archive is the host engine's at
+every pool size; a job's failure is raised from the ``a`` without a hang;
+a resumed add writes an uninterrupted add's bytes; and the trace holds one
+``add.prepare_wait`` a job on the operation's thread."""
 
 import dataclasses
 import pathlib
@@ -58,10 +58,12 @@ def tree(tmp_path, monkeypatch):
     return src
 
 
-def card_add(name, method, threads, **kw):
+def card_add(name, method, threads, use_device=True, **kw):
+    """The add through the card path's launch code on the CPU, or with
+    ``use_device=False`` through the host engine."""
     return port_add.add(name, ["src"], method=method, date=DATE,
                         fragment_bits=FRAGMENT, threads=threads,
-                        use_device=True, device="cpu", **kw)
+                        use_device=use_device, device="cpu", **kw)
 
 
 def bounded(fn):
@@ -84,7 +86,7 @@ def bounded(fn):
 
 
 #: the preprocessor's entry, before any test's spy
-PREPARE = engine.prepare_payload
+PREPARE = port_add.prepare_payload
 
 
 def spy_prepares(monkeypatch, fail=None):
@@ -103,7 +105,7 @@ def spy_prepares(monkeypatch, fail=None):
         with lock:
             seen["stored"] += int(store)
         return payload, store
-    monkeypatch.setattr(engine, "prepare_payload", spy)
+    monkeypatch.setattr(port_add, "prepare_payload", spy)
     return seen
 
 
@@ -130,15 +132,17 @@ def test_card_add_writes_the_host_bytes_at_every_pool_size(tree, method,
     assert pathlib.Path("four.zpaq").read_bytes() == host
 
 
+@pytest.mark.parametrize("use_device", [True, False])
 @pytest.mark.parametrize("threads", [1, 4])
 @pytest.mark.parametrize("k", [0, 5])
 def test_a_failed_job_is_raised_without_a_hang(tree, monkeypatch, threads,
-                                               k):
-    """The failing job's own error leaves the ``a``; nothing is written."""
+                                               k, use_device):
+    """The failing job's own error leaves the ``a``, on the card path and
+    in the host engine; nothing is written."""
     jobs = jobs_in_order(monkeypatch, "u.zpaq", "3.0")
     spy_prepares(monkeypatch, fail=(k, jobs[k]))
     with pytest.raises(RuntimeError, match=f"job {k} failed"):
-        bounded(lambda: card_add("f.zpaq", "3.0", threads))
+        bounded(lambda: card_add("f.zpaq", "3.0", threads, use_device))
     assert not pathlib.Path("f.zpaq").exists()
     assert not pathlib.Path("f.zpaq.spill").exists()
 
@@ -173,19 +177,21 @@ def test_resumed_add_writes_the_uninterrupted_bytes(tree, monkeypatch,
     assert not pathlib.Path("r.zpaq.resume").exists()
 
 
-def test_trace_holds_a_prepare_wait_a_job(tree, monkeypatch):
-    """Under the profiler: one ``add.prepare_wait`` a job on the
-    operation's thread, each ``add.prepare`` on a pool thread under
-    ``op.a`` with its ``pre.bwt`` inside it, and ``add.prepare_wait_ms``
-    reads the waits."""
+@pytest.mark.parametrize("engine_flag", ["-tpu", "-notpu"])
+def test_trace_holds_a_prepare_wait_a_job(tree, monkeypatch, engine_flag):
+    """Under the profiler, on the card path and in the host engine: one
+    ``add.prepare_wait`` a job on the operation's thread, each
+    ``add.prepare`` on a pool thread under ``op.a`` with its ``pre.bwt``
+    inside it, and ``add.prepare_wait_ms`` reads the waits."""
     orig = zdevice.resolve
     monkeypatch.setattr(zdevice, "resolve",
                         lambda device=None: orig("cpu" if device is None
                                                  else device))
     trace.clear()
     with profile(activities=[ProfilerActivity.CPU]):
-        assert cli.main(["a", "t.zpaq", "src", "-method", "3.0", "-tpu",
-                         "-threads", "4", "-fragment", "0"]) == 0  # 2^10
+        assert cli.main(["a", "t.zpaq", "src", "-method", "3.0",
+                         engine_flag, "-threads", "4",
+                         "-fragment", "0"]) == 0  # 2^10
     recs = trace.records()
     op = next(r for r in recs if r.name == "op.a")
     waits = [r for r in recs if r.name == "add.prepare_wait"]

@@ -142,7 +142,7 @@ def test_x_inverts_bwt_blocks_with_the_registered_inverse(tree, method):
     model, pre = make_model(method)
     assert model.pcomp == want and model.ph == model.pm == 20
     raw = (tree / "a.txt").read_bytes()[:LIMIT]
-    payload = engine.prepare_payload(pre, raw)[0]
+    payload = port_add.prepare_payload(pre, raw)[0]
     assert native.postprocess(1, 1, b"\x01" + model.pcomp_bytes() + payload,
                               out_hint=len(raw)) == raw
     assert cli.main(["x", "a.zpaq", "-to", "out", "-notpu"]) == 0

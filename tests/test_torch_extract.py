@@ -228,8 +228,9 @@ def test_encode_launches_fill_mid_stream(tmp_path, monkeypatch, lanes):
     jobs = [port_add._Job(first_frag=1 + 10 * i,
                           frags=[(hashlib.sha1(r).digest(), len(r))],
                           data=bytearray(r)) for i, r in enumerate(raws)]
-    host = [port_add._compress_d_block(model, pre, j, DATE) for j in jobs]
-    assert engine.prepare_payload(pre, raws[1])[1]       # store-chosen
+    host = list(port_add.code_jobs(model, pre, iter(jobs), DATE, None,
+                                   1 << 20, 1))
+    assert port_add.prepare_payload(pre, raws[1])[1]     # store-chosen
     path = tmp_path / "a.zpaq.resume"
     journal = port_add.ResumeJournal.load_or_create(path, DATE, method)
     journal.cache[journal.identity(jobs[2])] = host[2]   # from a prior run
@@ -239,9 +240,9 @@ def test_encode_launches_fill_mid_stream(tmp_path, monkeypatch, lanes):
     monkeypatch.setattr(engine, "lanes_per_launch", lambda *a: lanes)
     monkeypatch.setattr(engine, "encode_streams", lambda m, p, d: (
         batches.append(len(p)), encode(m, p, d))[1])
-    got = list(engine.encode_jidac_blocks(
-        model, pre, iter(jobs), DATE, port_add._jdc_name,
-        torch.device("cpu"), 1 << 20, journal=journal))
+    got = list(port_add.code_jobs(model, pre, iter(jobs), DATE,
+                                  torch.device("cpu"), 1 << 20, 1,
+                                  journal=journal))
     assert got == host
     assert batches == ([1, 1, 1] if lanes == 1 else [2, 1])
     journal._f.close()

@@ -3,6 +3,7 @@ and ``chip_smoke`` loads neither JAX nor any module of the reference
 package. Checked in a fresh interpreter, because this test process has
 imported JAX already (tests/conftest.py)."""
 
+import ast
 import json
 import os
 import pathlib
@@ -73,6 +74,25 @@ def test_smoke_fails_without_card_or_repository(tmp_path):
     res = _run(["chip_smoke.py"], tmp_path, pythonpath=False)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_lane_engine_and_ops_import_nothing_of_jidac():
+    """The arrows point one way: ``jidac`` calls down into the lane engine
+    and the kernels' wrappers, which import nothing of ``jidac``, absolute
+    or relative, at module level or inside a function."""
+    port = ROOT / "zpaqfranz_tpu_torch"
+    for path in [port / "parallel" / "engine.py",
+                 *sorted((port / "ops").glob("*.py"))]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mod = node.module or ""
+                names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+            else:
+                continue
+            assert not any("jidac" in n.split(".") for n in names), \
+                f"{path.relative_to(ROOT)}:{node.lineno} imports jidac"
 
 
 # reference modules whose counterpart has another name in the port

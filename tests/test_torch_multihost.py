@@ -215,7 +215,7 @@ def test_dist_add_host_engine_codes_on_every_rank(corpus):
 
 
 def test_dist_add_device_branch_plain_versions(tmp_path, monkeypatch):
-    """``--device cpu``: the device branch (``encode_jidac_blocks``) with
+    """``--device cpu``: the device branch of ``jidac.add.code_jobs`` with
     the CM encoder's plain version, on a ~4 KB tree; no kernel launch."""
     monkeypatch.chdir(tmp_path)
     src = tmp_path / "corpus"

@@ -22,9 +22,9 @@ from zpaqfranz_tpu.zpaql import compiler as ref_compiler
 
 from zpaqfranz_tpu_torch import convert, native
 from zpaqfranz_tpu_torch.codec import methods
+from zpaqfranz_tpu_torch.jidac import add as port_add
 from zpaqfranz_tpu_torch.models import tables
 from zpaqfranz_tpu_torch.ops import cm_decode as cmd
-from zpaqfranz_tpu_torch.parallel import engine
 from zpaqfranz_tpu_torch.zpaql import compiler
 
 from test_codec_arena import ALL_COMPONENTS_CFG
@@ -74,7 +74,7 @@ def test_native_compress_block_identical(method):
     raw = b" ".join(words[i] for i in rng.integers(0, 5, 3000))
     model, pre = methods.make_model(method)
     ref_model, ref_pre = ref_methods.make_model(method)
-    payload, store = engine.prepare_payload(pre, raw)
+    payload, store = port_add.prepare_payload(pre, raw)
     assert (payload, store) == ref_engine.prepare_payload(ref_pre, raw)
     assert not store
     ours = native.compress_block(model, payload, b"name", b"comment")

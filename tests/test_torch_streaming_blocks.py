@@ -12,10 +12,9 @@ from zpaqfranz_tpu.jidac.index import read_archive as ref_read
 
 from zpaqfranz_tpu_torch.codec.writer import compress_block
 from zpaqfranz_tpu_torch.jidac.archive_io import ArchiveSource
-from zpaqfranz_tpu_torch.jidac.extract import extract
+from zpaqfranz_tpu_torch.jidac.extract import decode_jidac_blocks, extract
 from zpaqfranz_tpu_torch.jidac.index import read_archive
 from zpaqfranz_tpu_torch.ops import cm_decode as cmd
-from zpaqfranz_tpu_torch.parallel.engine import decode_jidac_blocks
 from zpaqfranz_tpu_torch.zpaql.compiler import compile_config
 
 CFG = "comp 1 0 0 0 1  0 cm 12 7  hcomp a<<= 8 *d=a halt post 0 end"

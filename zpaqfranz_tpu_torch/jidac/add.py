@@ -8,12 +8,13 @@ call stack in SURVEY.md section 3.1):
   (native rolling hash) -> SHA-1 dedup -> pack new fragments into d blocks
   -> compress blocks -> append  c + d... + h... + i...  as one transaction.
 
-Modeled d blocks (-m3..-m5) are coded as lanes of the CUDA CM encode kernel
+``code_jobs`` codes the d blocks through one ordered window of host
+threads: modeled blocks (-m3..-m5) as lanes of the CUDA CM encode kernel
 (parallel/engine.py, ops/cm_encode.py) unless the caller, or for an
 unforced run the engine gate (device_policy.py), asks for the host engine,
-which compresses blocks through the native engine on host threads; both
-write the same bytes. Every emitted block is a standard ZPAQ block, so
-reference zpaqfranz can list/extract our archives.
+which codes them through the native engine on those threads; both write
+the same bytes. Every emitted block is a standard ZPAQ block, so reference
+zpaqfranz can list/extract our archives.
 
 The pipeline is factored into stages (open_for_append / diff_index /
 FragmentPlanner / build_transaction / commit_transaction).
@@ -22,11 +23,15 @@ FragmentPlanner / build_transaction / commit_transaction).
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import pathlib
 import struct
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import (Deque, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 from .. import native, trace
 from ..codec.methods import MethodError, make_model
@@ -121,31 +126,11 @@ class _Job:
 _STORE_MODEL = Model(hh=0, hm=0)
 
 
-def _compress_d_block(model: Optional[Model], pre, job: _Job,
-                      date: int, verify: bool = False,
-                      parent=None) -> bytes:
-    """Host-path d-block compression: the same prepare_payload decision
-    as the device lanes (parallel/engine.py), coded by the native engine.
-
-    ``verify``: run the postprocessor inverse over the transformed payload
-    and compare against the original before writing — the analog of the
-    reference Compressor::setVerify (libzpaq.h:513-531), which round-trips
-    the preprocessor during compression instead of after the fact.
-    ``parent``: the span of the thread that handed over the job."""
-    from ..parallel.engine import prepare_payload
-    with trace.span("add.prepare", parent=parent) as sp:
-        raw = job_bytes(job)
-        payload, store = prepare_payload(pre, raw)
-        sp.add(raw=len(raw), coded=len(payload), store=int(store))
-    comment = b"%d jDC\x01" % len(raw)
-    name = _jdc_name(date, "d", job.first_frag)
-    if store:
-        return native.compress_block(_STORE_MODEL, raw, name, comment)
-    if verify:
-        verify_payload(model, pre, raw, payload, job.first_frag)
-    if model is None:
-        model = _STORE_MODEL
-    return native.compress_block(model, payload, name, comment)
+def block_model(model: Optional[Model], store: bool) -> Model:
+    """The model a block is coded with: the method's, or the store model
+    where the store test fired (``prepare_payload``) or the method has
+    none."""
+    return _STORE_MODEL if store or model is None else model
 
 
 def verify_payload(model: Optional[Model], pre, raw: bytes, payload: bytes,
@@ -407,6 +392,190 @@ def job_bytes(job: _Job) -> bytes:
     return bytes(out)
 
 
+def looks_incompressible(payload: bytes) -> bool:
+    """Cheap pre-test before LZ77+model: sampled order-0 entropy as the
+    fast gate, then an actual LZ77 probe over a sample window. The entropy
+    test alone misclassifies LZ-redundant high-entropy data (e.g. a random
+    block repeated twice is 8 bits/byte order-0 but halves under LZ77), so
+    high entropy only short-circuits when the LZ probe also finds
+    nothing."""
+    n = len(payload)
+    if n < 1 << 16:
+        return False
+    import collections
+    step = max(1, n // (1 << 16))
+    sample = payload[::step][:1 << 16]
+    counts = collections.Counter(sample)
+    if len(counts) < 256:
+        return False
+    m = len(sample)
+    ent = -sum(c / m * math.log2(c / m) for c in counts.values())
+    if ent <= 7.98:
+        return False
+    # High order-0 entropy: confirm with a real (cheap) LZ77 probe over a
+    # contiguous window so long-range duplicates still get compressed.
+    probe = payload[: 1 << 18]
+    lz = native.lz77_encode(probe, min_match=8, depth_log=1, hash_bits=16)
+    return len(lz) >= len(probe) - (len(probe) >> 6)
+
+
+def prepare_payload(pre, payload: bytes) -> Tuple[bytes, bool]:
+    """Apply the method's preprocessor (host side).
+
+    Returns ``(bytes_to_code, store)``. ``store=True`` means the adaptive
+    store decision fired: the ORIGINAL payload should be written as a raw
+    store block instead of modeling the transformed stream (the reference's
+    per-block redundancy test).
+
+    Composite transforms (N2=5/6/7) apply E8E9 BEFORE LZ77/BWT, exactly as
+    the reference LZBuffer ctor does."""
+    if pre.transform in (1, 2):
+        if looks_incompressible(payload):
+            return payload, True
+        src = native.e8e9_transform(payload) if pre.e8e9 else payload
+        rb = max(0, pre.block_bits - 24)
+        if pre.min_match2 or pre.lookahead or pre.use_sa or pre.chain:
+            # high-ratio settings: scored parse with secondary context /
+            # lookahead / suffix-array or chain search (finder 2 = dual
+            # hash chains, the level-2 preset)
+            lz = native.lz77_parse(
+                src, pre.transform,
+                min_match=max(4 if pre.transform == 1 else 1,
+                              pre.min_match),
+                min_match2=pre.min_match2, lookahead=pre.lookahead,
+                depth_log=max(1, pre.depth_log),
+                hash_bits=max(12, min(pre.hash_bits or 22, 27)),
+                use_sa=1 if pre.use_sa else (2 if pre.chain else 0), rb=rb)
+        elif pre.transform == 1:
+            lz = native.lz77p_encode(
+                src, min_match=max(4, pre.min_match),
+                depth_log=max(1, pre.depth_log),
+                hash_bits=max(12, min(pre.hash_bits or 22, 27)),
+                rb=rb)
+        else:
+            lz = native.lz77_encode(
+                src, min_match=max(1, pre.min_match),
+                depth_log=max(1, pre.depth_log),
+                hash_bits=max(12, min(pre.hash_bits or 22, 27)))
+        if len(lz) >= len(payload) - (len(payload) >> 6):
+            # post-test: LZ77 found nothing; store beats modeling the
+            # expanded literal stream
+            return payload, True
+        return lz, False
+    if pre.transform == 3:
+        with trace.span("pre.bwt", bytes=len(payload)):
+            src = native.e8e9_transform(payload) if pre.e8e9 else payload
+            return native.bwt_encode(src), False
+    if pre.transform == 0 and pre.e8e9:
+        return native.e8e9_transform(payload), False
+    return payload, False
+
+
+def code_jobs(model: Optional[Model], pre, jobs: Iterable[_Job], date: int,
+              device, max_job: int, threads: int, verify: bool = False,
+              journal: Optional["ResumeJournal"] = None) -> Iterator[bytes]:
+    """Code d-block jobs; yields each job's framed d block in job order.
+
+    Each job is prepared on a pool of ``threads`` workers, at most twice
+    that many jobs ahead of the oldest job not yet taken: its bytes
+    (``job_bytes``), the preprocessor and the store test
+    (``prepare_payload``) and ``verify`` (``verify_payload``). A store
+    block, and with ``device`` None every block (the host engine), is
+    coded by the native engine on the pool. On ``device`` a modeled job
+    becomes a lane of the CM encode kernel: a launch goes out once the
+    pending lanes fill ``lanes_per_launch``, sized for a job of ``max_job``
+    raw bytes (the largest the planner makes), which bounds the payloads
+    held in memory. Results are taken in job order, so the lanes, the
+    launches and every byte written are the same for any pool, and both
+    engines write the same bytes; a job's error is raised when it is the
+    oldest. ``journal`` supplies blocks coded by an interrupted run and
+    records new ones."""
+    if device is not None:
+        from ..parallel import engine
+        prefix = engine.selector(model)
+        step = engine.lanes_per_launch(
+            model, engine.encode_lane_io(model, max_job), device)
+    parent = trace.current()
+    pool = ThreadPoolExecutor(max_workers=threads)
+    # (job, its journal block, else the future of its preparation)
+    ahead: Deque[Tuple[_Job, Optional[bytes], Optional[Future]]] = deque()
+    # the jobs since the oldest lane not yet coded: (job, block or None,
+    # the block's name and comment)
+    pending: List[Tuple[_Job, Optional[bytes],
+                        Optional[Tuple[bytes, bytes]]]] = []
+    payloads: List[bytes] = []
+
+    def prepare(job: _Job) -> Tuple[Tuple[bytes, bytes], bytes, bool]:
+        """(the block's name and comment, the block or the lane's payload,
+        whether it is the block)"""
+        with trace.span("add.prepare", parent=parent) as sp:
+            raw = job_bytes(job)
+            payload, store = prepare_payload(pre, raw)
+            sp.add(raw=len(raw), coded=len(payload), store=int(store))
+            if verify and not store:
+                verify_payload(model, pre, raw, payload, job.first_frag)
+        label = (_jdc_name(date, "d", job.first_frag),
+                 b"%d jDC\x01" % len(raw))
+        if store or device is None:
+            return label, native.compress_block(
+                block_model(model, store), payload, *label), True
+        return label, prefix + payload, False
+
+    def take() -> Iterator[bytes]:
+        """The oldest job's block, or its lane; a launch once the lanes
+        fill one"""
+        job, block, fut = ahead.popleft()
+        label = None
+        if block is None:
+            with trace.span("add.prepare_wait", ready=int(fut.done())):
+                label, out, is_block = fut.result()
+            if is_block:
+                block = out
+                if journal is not None:
+                    journal.put(job, block)
+            else:
+                payloads.append(out)
+        if not payloads:
+            yield block
+            return
+        pending.append((job, block, label))
+        if len(payloads) >= step:
+            yield from launch()
+
+    def launch() -> Iterator[bytes]:
+        coded = iter(engine.encode_streams(model, payloads, device))
+        for job, block, label in pending:
+            if block is None:
+                with trace.span("add.assemble"):
+                    block = engine.assemble_block(model, next(coded), *label)
+                if journal is not None:
+                    journal.put(job, block)
+            yield block
+        pending.clear()
+        payloads.clear()
+
+    def ready() -> bool:
+        _job, block, fut = ahead[0]
+        return block is not None or fut.done()
+
+    try:
+        for job in jobs:
+            block = journal.get(job) if journal is not None else None
+            ahead.append((job, block, None if block is not None
+                          else pool.submit(prepare, job)))
+            while ahead and (len(ahead) >= 2 * threads or ready()):
+                yield from take()
+        while ahead:
+            yield from take()
+        if payloads:
+            yield from launch()
+    finally:
+        for _job, _block, fut in ahead:
+            if fut is not None:
+                fut.cancel()
+        pool.shutdown(wait=False)
+
+
 # ---------------------------------------------------------------------------
 # Stage 4: transaction assembly (c + d... + h... + i)
 # ---------------------------------------------------------------------------
@@ -465,7 +634,7 @@ def stream_transaction(date: int, jobs: Sequence[_Job], spill: DBlockSpill,
     via the generator's final attribute — call collect_index() after
     draining. Layouts identical to build_transaction."""
     ix = bytearray()
-    store = Model(hh=0, hm=0)
+    store = _STORE_MODEL
     cbody = struct.pack("<q", spill.csize)
     cblk = native.compress_block(
         store, cbody, _jdc_name(date, "c", first_frag),
@@ -518,7 +687,7 @@ def build_transaction(date: int, jobs: Sequence[_Job],
     csize = sum(len(b) for b in d_blocks)
     cbody = struct.pack("<q", csize)
     cname = _jdc_name(date, "c", first_frag)
-    store = Model(hh=0, hm=0)
+    store = _STORE_MODEL
     cblk = native.compress_block(
         store, cbody, cname, b"%d jDC\x01" % len(cbody))
     out += cblk
@@ -719,7 +888,6 @@ def add_streaming(ctx: AppendCtx, model, pre, changed: Sequence[str],
     back. Each block carries the SHA-1 of its decoded bytes."""
     import hashlib
 
-    from ..parallel.engine import prepare_payload
     counts = [0, 0]     # blocks, logical bytes
 
     def pieces():
@@ -732,11 +900,9 @@ def add_streaming(ctx: AppendCtx, model, pre, changed: Sequence[str],
                     if not chunk and not first:
                         break
                     payload, store = (prepare_payload(pre, chunk)
-                                      if model is not None and chunk
-                                      else (chunk, True))
-                    m = _STORE_MODEL if store or model is None else model
+                                      if chunk else (chunk, True))
                     blk = native.compress_block(
-                        m, chunk if store else payload,
+                        block_model(model, store), payload,
                         name.encode() if first else b"",
                         b"%d %014d" % (len(chunk), fdate),
                         sha1=hashlib.sha1(chunk).digest())
@@ -897,13 +1063,14 @@ def add(archive: str, files: Sequence[str], method: str = "1",
     resume: journal completed d blocks to <archive>.resume so an
     interrupted add continues where it stopped (block-granular encode
     resume; the archive is untouched until the transaction commits).
-    use_device: code modeled d blocks (-m3..-m5) as lanes of the CM encode
-    kernel on ``device`` (None = the CUDA card, which must be present;
-    "cpu" = the kernel's plain PyTorch version). False = the host engine's
-    thread pool. None = the engine gate (``device_policy``) at ``method``
-    with one lane per d block of the changed files' bytes. Both write the
-    same archive bytes; store-coded methods (-m0..-m2) and streaming-format
-    adds always use the host engine."""
+    use_device: ``code_jobs`` codes modeled d blocks (-m3..-m5) as lanes
+    of the CM encode kernel on ``device`` (None = the CUDA card, which must
+    be present; "cpu" = the kernel's plain PyTorch version). False = the
+    host engine on ``code_jobs``' threads. None = the engine gate
+    (``device_policy``) at ``method`` with one lane per d block of the
+    changed files' bytes. Both write the same archive bytes; store-coded
+    methods (-m0..-m2) and streaming-format adds always use the host
+    engine."""
     model, pre = make_model(method)   # raises for not-yet-supported methods
     streaming = method.lstrip().startswith("s")
     if not streaming:
@@ -981,35 +1148,13 @@ def add(archive: str, files: Sequence[str], method: str = "1",
                 data.close()
         return nbytes, (crc, xxh), frags
 
-    def _compress_job(job: "_Job", parent) -> bytes:
-        if journal is not None:
-            hit = journal.get(job)
-            if hit is not None:
-                return hit
-        blk = _compress_d_block(model, pre, job, date, verify, parent)
-        if journal is not None:
-            journal.put(job, blk)
-        return blk
-
     file_sums: Dict[str, Tuple[int, int]] = {}
-    # compression overlaps the digest scan: each d-block job is submitted
-    # the moment it fills (the reference's add() gets the same overlap
-    # from its per-block worker threads, SURVEY.md section 2.8); on the
-    # card the same pool prepares the jobs' lanes
+    # coding overlaps the digest scan: each d-block job is handed to
+    # ``code_jobs`` the moment it fills (the reference's add() gets the
+    # same overlap from its per-block worker threads, SURVEY.md section 2.8)
     cx_threads = threads or max(2, min(8, (os.cpu_count() or 4)))
-    cx = _fut.ThreadPoolExecutor(max_workers=cx_threads)
-    import collections
-    d_futs: "collections.deque[_fut.Future]" = collections.deque()
     spill = DBlockSpill(pathlib.Path(str(ctx.path) + ".spill"))
     try:
-        def drain(block: bool) -> None:
-            # consume completed d blocks IN JOB ORDER into the spill file;
-            # the submit window (2x threads) bounds out-of-order results,
-            # so finished-but-unconsumed blocks never pile up in RAM
-            while d_futs and (d_futs[0].done()
-                              or block or len(d_futs) >= 2 * cx_threads):
-                spill.append(d_futs.popleft().result())
-
         def planned_jobs():
             # d-block jobs in order, each as soon as it fills
             done_bytes = 0
@@ -1038,20 +1183,10 @@ def add(archive: str, files: Sequence[str], method: str = "1",
                 jobs.append(tail)
                 yield tail
 
-        if dev is not None:
-            from ..parallel.engine import encode_jidac_blocks
-            for blk in encode_jidac_blocks(
-                    model, pre, planned_jobs(), date, _jdc_name, dev,
-                    max_job, verify=verify, journal=journal, pool=cx,
-                    window=2 * cx_threads):
-                with trace.span("add.spill"):
-                    spill.append(blk)
-        else:
-            for job in planned_jobs():
-                d_futs.append(cx.submit(_compress_job, job,
-                                        trace.current()))
-                drain(block=False)
-            drain(block=True)
+        for blk in code_jobs(model, pre, planned_jobs(), date, dev, max_job,
+                             cx_threads, verify=verify, journal=journal):
+            with trace.span("add.spill"):
+                spill.append(blk)
 
         with trace.span("add.commit") as sp:
             pieces = stream_transaction(
@@ -1062,7 +1197,6 @@ def add(archive: str, files: Sequence[str], method: str = "1",
                 tmp=tmp, index_path=index_path)
             sp.add(bytes=nbytes)
     finally:
-        cx.shutdown(wait=False)
         with trace.span("add.spill"):
             spill.close()
     if journal is not None:

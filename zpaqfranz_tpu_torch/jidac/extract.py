@@ -6,16 +6,18 @@ verify every fragment's SHA-1 before writing, then merge consecutive
 fragments into file writes and set dates/permissions last.
 
 Blocks decode independently (format guarantee, libzpaq.h:57-59). The
-device path decodes every modeled block as one lane of the CUDA CM decode
-kernel (parallel/engine.py, ops/cm_decode.py) and ``verify_archive`` hashes
-every fragment in the CUDA SHA-1 lane kernel (ops/sha1.py). The host path
-(``use_device=False``) runs the block loop on a thread pool of native
-decodes; ctypes releases the GIL, giving real block-level parallelism.
+device path (``decode_jidac_blocks``) decodes every modeled block as one
+lane of the CUDA CM decode kernel (parallel/engine.py, ops/cm_decode.py)
+and ``verify_archive`` hashes every fragment in the CUDA SHA-1 lane kernel
+(ops/sha1.py). The host path (``use_device=False``) runs the block loop on
+a thread pool of native decodes; ctypes releases the GIL, giving real
+block-level parallelism.
 ``use_device=None`` asks the engine gate (device_policy.py).
 """
 
 from __future__ import annotations
 
+import bisect
 import concurrent.futures
 import os
 import pathlib
@@ -23,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import native, trace
 from ..errors import ExtractError
+from ..zpaql.header import Model
 from .archive_io import ArchiveSource, as_source
 from .index import Block, Jidac, fragment_to_block
 
@@ -110,6 +113,81 @@ def select_files(jd: Jidac, patterns: Sequence[str]) -> List[str]:
     return sorted(out)
 
 
+def _block_sizes(src, jd, blocks) -> List[int]:
+    """Each block's bytes in ``src``: ``bsize`` from the h block, or for a
+    streaming-format block (``bsize`` 0, no stored size) up to the next
+    block of ``jd`` or ``blocks`` in the archive, or to its end."""
+    starts = sorted({b.offset for b in jd.block} | {b.offset for b in blocks})
+    out = []
+    for blk in blocks:
+        n = blk.bsize
+        if not n:
+            k = bisect.bisect_right(starts, blk.offset)
+            n = (starts[k] if k < len(starts) else src.size()) - blk.offset
+        out.append(n)
+    return out
+
+
+def block_models(data, jd, blocks) -> List[Model]:
+    """The model each of ``blocks`` was coded with, parsed from the first
+    ``HEADER_READ`` bytes of the block (``model.n == 0``: a store block)."""
+    from ..parallel import engine
+    src = as_source(data)
+    return [engine.parse_block_payload(
+                src.read_range(blk.offset, min(n, engine.HEADER_READ)), 0)[0]
+            for blk, n in zip(blocks, _block_sizes(src, jd, blocks))]
+
+
+def decode_jidac_blocks(data, jd, blocks, device) -> Dict[int, bytes]:
+    """Decode jidac d blocks -> {block.offset: concatenated fragment bytes}.
+
+    ``data``: archive bytes or a streaming ArchiveSource; each block's
+    bytes are fetched as one bounded range: ``bsize`` from the h block, or
+    for a streaming-format block (``bsize`` 0, no stored size) up to the
+    next block of ``jd`` or ``blocks`` in the archive, or to its end.
+    Modeled blocks run as lanes of the CM decode kernel on ``device``
+    (``engine.decode_streams``), grouped by model header; store blocks
+    decode in the host engine."""
+    from ..parallel import engine
+    src = as_source(data)
+    groups: Dict[bytes, List] = {}
+    host_blocks = []
+    metas = {}
+    for blk, n in zip(blocks, _block_sizes(src, jd, blocks)):
+        with trace.span("extract.read", bytes=n):
+            model, _, payload = engine.parse_block_payload(
+                src.read_range(blk.offset, n), 0)
+        metas[blk.offset] = (model, payload)
+        if model.n > 0:
+            groups.setdefault(model.header_bytes(), []).append(blk)
+        else:
+            host_blocks.append(blk)
+
+    out: Dict[int, bytes] = {}
+    for blks in groups.values():
+        model = metas[blks[0].offset][0]
+        decoded = engine.decode_streams(
+            model, [metas[b.offset][1] for b in blks],
+            [b.usize + engine.OUT_SLACK for b in blks], device)
+        for b, d in zip(blks, decoded):
+            with trace.span("extract.postprocess"):
+                res = native.postprocess(model.ph, model.pm, d,
+                                         out_hint=b.usize)
+            if len(res) < b.usize:
+                raise ExtractError(
+                    f"block at {b.offset}: {len(res)} < {b.usize} bytes")
+            out[b.offset] = res
+
+    for blk in host_blocks:
+        with src.stream() as s:
+            s.seek(blk.offset)
+            segs = s.read_block()
+        if not segs:
+            raise RuntimeError(f"block at {blk.offset} not found")
+        out[blk.offset] = b"".join(seg.data for seg in segs)
+    return out
+
+
 def _decode_on_card(data, jd: Jidac, blocks: List[Block],
                     use_device: Optional[bool], device) -> bool:
     """``use_device`` when forced; for None the engine gate's decision
@@ -120,7 +198,7 @@ def _decode_on_card(data, jd: Jidac, blocks: List[Block],
         return use_device
     from .. import device_policy
     from ..codec.methods import make_model
-    from ..parallel.engine import OUT_SLACK, block_models, gate_lanes
+    from ..parallel.engine import OUT_SLACK, gate_lanes
     models = [m for m in block_models(data, jd, blocks) if m.n > 0]
     est = sum(b.usize for b in blocks)
     if not models:
@@ -167,7 +245,6 @@ def extract(data, jd: Jidac, to_dir: str,
 
     if _decode_on_card(data, jd, blocks, use_device, device):
         from ..device import resolve
-        from ..parallel.engine import decode_jidac_blocks
         decoded = decode_jidac_blocks(data, jd, blocks, resolve(device))
         for blk in blocks:
             frag_bytes.update(_verify_fragments(jd, blk,
@@ -370,7 +447,6 @@ def decode_fragments(data, jd: Jidac, use_device: Optional[bool] = True,
                                                 _decode_block(data, blk)))
         return frag_bytes
     from ..device import resolve
-    from ..parallel.engine import decode_jidac_blocks
     dev = resolve(device)
     decoded = decode_jidac_blocks(data, jd, jd.block, dev)
     for blocks in _batches(jd):

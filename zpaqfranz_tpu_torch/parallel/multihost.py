@@ -15,11 +15,11 @@ each, append one transaction together:
    order, and every host replays the same deterministic assignment
    (``jidac.add.FragmentPlanner``), so fragment IDs, d-block packing and
    therefore the archive's bytes do not depend on the number of hosts;
- - each host codes the d blocks it owns (round robin by job index): a
-   modeled block as a lane of the CM encode kernel on its card
-   (``parallel/engine.encode_jidac_blocks``) unless the host engine is
-   asked for, and an ordered gather brings the blocks to host 0, the one
-   writer (the reference's write mutex, zsfx.cpp:1711);
+ - each host codes the d blocks it owns (round robin by job index)
+   through ``jidac.add.code_jobs``: a modeled block as a lane of the CM
+   encode kernel on its card unless the host engine is asked for, and an
+   ordered gather brings the blocks to host 0, the one writer (the
+   reference's write mutex, zsfx.cpp:1711);
  - host 0 appends the c + d... + h... + i transaction.
 
 Communication:
@@ -346,15 +346,9 @@ def dist_add(comm, archive: str, files: Sequence[str], method: str = "1",
     # ---- stage 4: code my jobs (round robin by job index) -----------------
     # a job carries spans; each coder reads its bytes from shared storage
     my_jobs = [(k, job) for k, job in enumerate(jobs) if k % world == rank]
-    if device is not None:
-        from .engine import encode_jidac_blocks
-        blocks = encode_jidac_blocks(
-            model, pre, [job for _k, job in my_jobs], date, jadd._jdc_name,
-            device, max_job)
-        my_blocks = {k: blk for (k, _job), blk in zip(my_jobs, blocks)}
-    else:
-        my_blocks = {k: jadd._compress_d_block(model, pre, job, date)
-                     for k, job in my_jobs}
+    blocks = jadd.code_jobs(model, pre, [job for _k, job in my_jobs], date,
+                            device, max_job, threads=1)
+    my_blocks = {k: blk for (k, _job), blk in zip(my_jobs, blocks)}
 
     # ---- stage 5: ordered gather to the writer host ------------------------
     gathered = comm.gather(my_blocks)
