@@ -2365,7 +2365,8 @@ def main() -> int:
                 name)
     build.build(list(build.SOURCES) + [u for u, _ in labels.values()])
     log(f"built {', '.join(build.SOURCES)} and the CM kernels of "
-        f"{len(labels) // 2} specialised models (HCOMP and combine) in "
+        f"{len(labels) // 2} specialised models (HCOMP, combine and "
+        f"phases) in "
         f"{time.perf_counter() - t0:.1f} s")
     for key, rec in build.BUILD_LOG.items():
         name = key if key not in labels else (
@@ -2423,6 +2424,7 @@ def main() -> int:
         for mod in (cmd, cme):
             mod.hcomp_launches.update(fast=0, interp=0)
             mod.combine_launches.update(fast=0, generic=0)
+            mod.phases_launches.update(fast=0, generic=0)
         t0 = time.perf_counter()
         elsewhere = fn()
         torch.cuda.synchronize()
@@ -2436,6 +2438,10 @@ def main() -> int:
                                            "generic": 0},
                   f"the {what}'s {name} launches did not all run the "
                   f"specialised combine: {mod.combine_launches}")
+            check(mod.phases_launches == {"fast": mod.launches,
+                                          "generic": 0},
+                  f"the {what}'s {name} launches did not all run the "
+                  f"generated phases: {mod.phases_launches}")
         got["cm_encode"] += elsewhere
         log(f"{what} launches: {got}"
             + (f" ({elsewhere} cm_encode in the ranks' processes)"

@@ -867,6 +867,84 @@ def test_cm_combine_interp_hcomp_and_generic_combine(card):
                                                          for r in raws]
 
 
+# ---------------------------------------------------------------------------
+# phases (a) and (c): the generated straight-line code against the generic
+
+
+@pytest.mark.parametrize("method", ["3", "4", "5", "4.0", "5.0"])
+@pytest.mark.parametrize("count", ["1", "lpb", "lpb+1"])
+def test_cm_phases_fast_equals_generic(card, method, count):
+    """At 1 lane, one block's lanes and one lane into a second block, the
+    generated phases and the generic ones forced each code and decode
+    every lane as the host engine does, at the same placement; each launch
+    counts under its phases."""
+    ref, _ = ref_make_model(method)
+    model = convert.model_from_reference_header(ref.header_bytes())
+    lpb = Placement(model, "fast").lanes_per_block
+    L = {"1": 1, "lpb": lpb, "lpb+1": lpb + 1}[count]
+    rng = np.random.default_rng(200 + L)
+    raws = [b"Phases %d: " % k + b"a bird, a Bird; A BIRD " * int(k % 5)
+            + rng.integers(0, 256, int(k % 9), dtype=np.uint8).tobytes()
+            for k in range(L)]
+    prefix = _prefix(ref)
+    packed = cme.pack_payloads([prefix + r for r in raws], card)
+    coded = _coded(ref, raws)
+    streams = cmd.pack_streams(coded, [len(prefix) + len(r) + 64
+                                       for r in raws], card)
+    before = (dict(cme.phases_launches), dict(cmd.phases_launches))
+    plans = []
+    for phases, want in ((None, "fast"), ("generic", "generic")):
+        enc = cme.Launch(model, *packed, phases=phases).run()
+        dec = cmd.Launch(model, *streams, phases=phases).run()
+        assert (enc.phases, dec.phases, enc.combine) == (want, want, "fast")
+        assert cmd.lanes_to_bytes(*enc.result()) == [c[:-6] for c in coded]
+        assert cmd.lanes_to_bytes(*dec.result()) == [prefix + r
+                                                     for r in raws]
+        plans.append((enc.plan.lanes_per_block, enc.plan.smem,
+                      enc.plan.blocks(L)))
+    assert plans[0] == plans[1]
+    for mod, old in zip((cme, cmd), before):
+        assert mod.phases_launches == {k: v + 1 for k, v in old.items()}
+
+
+def test_cm_phases_archives_identical(card, tmp_path, monkeypatch):
+    """A card ``a`` of one tree at ``3.0``, ``4.0`` and ``5.0`` writes the
+    same archive with the generated phases and with the generic ones
+    forced in every launch."""
+    import zpaqfranz_tpu_torch.jidac.add as add_mod
+    from zpaqfranz_tpu_torch import cli
+    from zpaqfranz_tpu_torch.ops import cm_model
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(add_mod, "now_date", lambda: DATE)
+    rng = np.random.default_rng(20)
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "text.txt").write_bytes(b"the phases of a bit, " * 4000)
+    (src / "mixed.bin").write_bytes(
+        b"".join(b"record %d; " % k + rng.integers(0, 256, k % 13,
+                                                   dtype=np.uint8).tobytes()
+                 for k in range(6000)))
+    orig = cm_model.phases_step
+    for method in ("3.0", "4.0", "5.0"):
+        digests = []
+        for phases in ("fast", "generic"):
+            monkeypatch.setattr(
+                cm_model, "phases_step",
+                lambda model, plan, want=None, ph=phases: orig(
+                    model, plan, want or ph))
+            before = dict(cme.phases_launches)
+            name = f"{method}-{phases}"
+            assert cli.main(["a", name, "src", "-method", method,
+                             "-tpu"]) == 0
+            assert cme.phases_launches[phases] > before[phases]
+            digests.append(hashlib.sha1(
+                (tmp_path / f"{name}.zpaq").read_bytes()).hexdigest())
+        print(method, digests)
+        assert digests[0] == digests[1], method
+    monkeypatch.setattr(cm_model, "phases_step", orig)
+
+
 def test_cm_rejected_program_runs_the_interpreter(card):
     """A looping program is outside the specialisable subset: a launch
     runs the interpreter, and asking for the specialised step raises."""

@@ -71,6 +71,7 @@ def test_cm_lane_stamps_change_no_byte(card, method):
     assert got == [c[:-6] for c in coded]
     assert recs["cm.launch"].counts["lanes"] == L
     assert recs["cm.launch"].counts["combine"] == "fast"
+    assert recs["cm.launch"].counts["phases"] == "fast"
     wait = recs["cm.wait"].counts
     assert len(wait["lane_ns"]) == L
     assert 0 < max(wait["lane_ns"]) <= wait["kernel_ns"]

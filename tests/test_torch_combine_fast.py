@@ -18,9 +18,10 @@ from zpaqfranz_tpu_torch.models import tables as T
 from zpaqfranz_tpu_torch.ops import build
 from zpaqfranz_tpu_torch.ops import combine_fast as cf
 from zpaqfranz_tpu_torch.ops import hcomp_fast as hf
+from zpaqfranz_tpu_torch.ops import phases_fast as pf
 from zpaqfranz_tpu_torch.ops.cm_model import (_BIGLUT, SQ_OFF, STR_OFF,
-                                              Placement, combine_step,
-                                              kernel_unit)
+                                              Layout, Placement,
+                                              combine_step, kernel_unit)
 from zpaqfranz_tpu_torch.zpaql.compiler import compile_config
 
 M32 = 0xFFFFFFFF
@@ -303,21 +304,26 @@ def test_unknown_combine_raises():
 
 @pytest.mark.parametrize("name", ["4", "5", "4.0", "5.0", "cfg"])
 def test_one_unit_per_kernel_and_model(name):
-    """The unit of a launch holds the specialised HCOMP program and the
-    specialised combine together, each with its switch; forcing either
-    generic step leaves its part out, and both leave the plain kernel."""
+    """The unit of a launch holds the specialised HCOMP program, the
+    specialised combine and the generated phases together, each with its
+    switch; forcing a generic step leaves its part out, and all three
+    leave the plain kernel."""
     model = _model(name)
+    plan = Placement(model, "fast")
     hsrc = hf.try_compile(model).cuda_source()
-    csrc = cf.try_compile(model, Placement(model, "fast").rows).cuda_source()
+    csrc = cf.try_compile(model, plan.rows).cuda_source()
+    psrc = pf.try_compile(model, plan, Layout(model)).cuda_source()
     for kernel in ("cm_decode", "cm_encode"):
         unit = kernel_unit(kernel, model)
         assert unit == (kernel, f"{hsrc}\n#define CM_HCOMP_FAST 1\n{csrc}\n"
-                                "#define CM_COMBINE_FAST 1\n")
+                                f"#define CM_COMBINE_FAST 1\n{psrc}\n"
+                                "#define CM_PHASES_FAST 1\n")
         name_, gen = kernel_unit(kernel, model, hcomp="interp")
         assert "HcompFast" not in gen and "#define CM_COMBINE_FAST" in gen
         name_, gen = kernel_unit(kernel, model, combine="generic")
         assert "CombineFast" not in gen and "#define CM_HCOMP_FAST" in gen
-        assert kernel_unit(kernel, model, "interp", "generic") == kernel
+        assert kernel_unit(kernel, model, "interp", "generic",
+                           "generic") == kernel
     assert build.unit_key(kernel_unit("cm_encode", model)) != build.unit_key(
         kernel_unit("cm_encode", make_model("3")[0]))
 

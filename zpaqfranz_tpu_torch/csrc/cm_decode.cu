@@ -35,6 +35,15 @@ typedef FastCombine<CombineFast> Combine;
 typedef GenericCombine Combine;
 #endif
 
+// The phases (a) and (c): the generic ones, or the model's that
+// ops/build.py compiles in from the same generated header (struct
+// PhasesFast, from ops/phases_fast.py, defined with CM_PHASES_FAST).
+#ifdef CM_PHASES_FAST
+typedef FastPhases<PhasesFast> Phases;
+#else
+typedef GenericPhases Phases;
+#endif
+
 struct Dec {
   u32 low, high, curr;
   i64 pos, len;
@@ -57,15 +66,16 @@ __device__ __forceinline__ int decode_bit(Dec& d, int& status, u32 p) {
   return y;
 }
 
-__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS, 1)
     cm_decode_kernel(CM_LANE_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Model m = load_model(smem, comps, cplan, off8, off32, n, hcomp,
                              hlen, hh, hm, max_steps, lut);
   Lane s;
+  Phases ph;
   int lane;
-  if (!init_lane(s, m, smem, G, lpb, lane_words, geo, L, a8, s8, a32, s32,
-                 hmem, mmem, rmem, hh, hm, prof, stamps, &lane))
+  if (!init_lane(s, ph, m, smem, G, lpb, lane_words, geo, L, a8, s8, a32,
+                 s32, hmem, mmem, rmem, hh, hm, prof, stamps, &lane))
     return;
   Step step;
   step.init();
@@ -111,7 +121,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     if (go != 0) break;
     u32 c = 1;
     while (c < 256) {
-      const int y = code_bit<Combine>(s, m, step, [&](u32 pr) {
+      const int y = code_bit<Combine>(s, m, step, ph, [&](u32 pr) {
         return decode_bit(d, s.status, pr);
       });
       if (s.status != ST_OK) break;

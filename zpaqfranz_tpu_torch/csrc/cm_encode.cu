@@ -37,6 +37,15 @@ typedef FastCombine<CombineFast> Combine;
 typedef GenericCombine Combine;
 #endif
 
+// The phases (a) and (c): the generic ones, or the model's that
+// ops/build.py compiles in from the same generated header (struct
+// PhasesFast, from ops/phases_fast.py, defined with CM_PHASES_FAST).
+#ifdef CM_PHASES_FAST
+typedef FastPhases<PhasesFast> Phases;
+#else
+typedef GenericPhases Phases;
+#endif
+
 struct Enc {
   u32 low, high;
   u8* dst;
@@ -57,15 +66,16 @@ __device__ __forceinline__ void encode_bit(Enc& e, int& status, int y,
   }
 }
 
-__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS, 1)
     cm_encode_kernel(CM_LANE_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Model m = load_model(smem, comps, cplan, off8, off32, n, hcomp,
                              hlen, hh, hm, max_steps, lut);
   Lane s;
+  Phases ph;
   int lane;
-  if (!init_lane(s, m, smem, G, lpb, lane_words, geo, L, a8, s8, a32, s32,
-                 hmem, mmem, rmem, hh, hm, prof, stamps, &lane))
+  if (!init_lane(s, ph, m, smem, G, lpb, lane_words, geo, L, a8, s8, a32,
+                 s32, hmem, mmem, rmem, hh, hm, prof, stamps, &lane))
     return;
   Step step;
   step.init();
@@ -84,7 +94,7 @@ __global__ void __launch_bounds__(MAX_BLOCK_THREADS)
     const u32 c = src[j];
     for (int k = 7; k >= 0 && s.status == ST_OK; --k) {
       const int y = (c >> k) & 1;
-      code_bit<Combine>(s, m, step, [&](u32 pr) {
+      code_bit<Combine>(s, m, step, ph, [&](u32 pr) {
         if (first) encode_bit(e, s.status, 0, 0);   // not the end of segment
         if (s.status == ST_OK) encode_bit(e, s.status, y, pr);
         return y;

@@ -40,14 +40,25 @@
 //   component owns its tables, so the updates run in parallel and need no
 //   second read of the values (a) loaded. Phase (c) of one bit and phase
 //   (a) of the next run back to back without a barrier between them.
+//   Phases (a) and (c) are a policy of the kernels too (template parameter
+//   Phases): FastPhases runs the model's phases as straight-line code that
+//   ops/phases_fast.py generates for its placement: thread k owns component
+//   k (every preset has G >= n), loads its constants into registers once a
+//   lane and keeps its own state there from bit to bit (its context, the
+//   held row, what (a) read), the MIX and SSE rows unrolled with their
+//   owners and placements fixed, only the model's own types compiled in;
+//   the region keeps what other threads read or write. GenericPhases
+//   (phase_a, phase_c) reads the model from the block header on every bit,
+//   for the models the generator refuses (G < n).
 // - Phases (a) and (c) are one instruction stream for every component type
 //   (addresses and results selected by type): threads of one warp that took
 //   different branches would run them one after another, and their reads'
 //   latencies would add up instead of overlapping.
 // - ICM/ISSE hash rows are fetched once per nibble: the three candidate
 //   16-byte rows of find() arrive as three 16-byte loads in flight at once
-//   and the chosen row stays in shared memory for the nibble's four bits,
-//   written back before the next find().
+//   and the chosen row stays with its thread for the nibble's four bits (in
+//   shared memory, or in registers with the generated phases), written back
+//   before the next find().
 // - Small per-lane tables (ICM/ISSE state tables, small CM, MIX, MIX2, SSE
 //   and MATCH pointer tables, HCOMP's H) live in shared memory, placed by
 //   ops/cm_model.py Placement within a per-lane budget; the rest stay in
@@ -65,9 +76,13 @@
 //   when placed, M in device memory) for the programs the specialiser
 //   rejects, with a per-launch step limit.
 //
-// What bounds it now: the chain of dependent instructions on thread 0 (the
-// combine and the coder step), phases (a) and (c), then HCOMP where it is
-// interpreted (PERF.md; chip_smoke.py prints the profiled phases).
+// What bounds it now (a bit at -m4, ~2,500 cycles with every policy
+// generated): phases (a) and (c), about half of it, phase (a) waiting for
+// the nibble's hash rows and the device rows' cp.async and phase (c) for
+// its loads of predictions, squash and counter steps; the combine and the
+// coder step on thread 0, about a quarter; MATCH's byte end and the
+// group's waits; HCOMP where it is interpreted (PERF.md;
+// experiments/combine_profile.py prints the profiled phases).
 
 #pragma once
 
@@ -96,8 +111,15 @@ constexpr int NPAR = 6;    // comp params: type p1..p5
 constexpr int SMEM_LIMIT = 232448;   // shared bytes one block may use
 // threads one block may have: the kernels are compiled for it
 // (__launch_bounds__), which leaves a thread up to 128 registers; with
-// 1024 a thread would get 64 and the kernels use about 120
+// 1024 a thread would get 64 and the kernels use about 120. A unit with
+// the generated phases (ops/phases_fast.py) is compiled for its own block
+// (CM_BLOCK_THREADS, lanes a block times G): its shared memory already
+// holds an SM to one block, so the registers that frees cost nothing.
+#ifdef CM_BLOCK_THREADS
+constexpr int MAX_BLOCK_THREADS = CM_BLOCK_THREADS;
+#else
 constexpr int MAX_BLOCK_THREADS = 512;
+#endif
 
 // Placement of one model (ops/cm_model.py Placement.geometry): word offsets
 // of the per-lane arrays inside a lane's shared region. H is at G_HT, or in
@@ -462,6 +484,35 @@ __device__ __forceinline__ void phase_c(Lane& s, const Model& m, int y) {
   }
 }
 
+// Phases (a) and (c), a policy of the kernels (template parameter Phases,
+// see the header note): GenericPhases runs phase_a and phase_c;
+// FastPhases<P> the model's struct PhasesFast from ops/phases_fast.py,
+// which keeps its state from bit to bit (q). Both give the same
+// predictions, table entries, rows and contexts.
+struct GenericPhases {
+  __device__ __forceinline__ void init(const Lane&, const Model&) {}
+  __device__ __forceinline__ void a(Lane& s, const Model& m) {
+    phase_a(s, m);
+  }
+  __device__ __forceinline__ void c(Lane& s, const Model& m, int y) {
+    phase_c(s, m, y);
+  }
+};
+
+template <class P>
+struct FastPhases {
+  P q;
+  __device__ __forceinline__ void init(const Lane& s, const Model&) {
+    q.init(s.k, s.sw, s.A8, s.A32);
+  }
+  __device__ __forceinline__ void a(Lane& s, const Model& m) {
+    q.a(s.sw, s.A32, s.p, s.c8, s.hmap4, s.bit, m.st, m.dt2k);
+  }
+  __device__ __forceinline__ void c(Lane& s, const Model& m, int y) {
+    q.c(s.sw, s.A32, s.p, s.c8, s.hmap4, y, m.sq, m.sns, m.dt);
+  }
+};
+
 // MATCH at a byte's end: append the byte to the history, then find the
 // length of the match at the hashed pointer, G positions per step.
 __device__ __forceinline__ void match_byte_end(Lane& s, const Model& m,
@@ -713,13 +764,13 @@ __device__ __forceinline__ void tail(Lane& s, const Model& m, Step& step,
 
 // One coded bit of the lane, whose phase (a) has run: the combine
 // (``Combine``) and coder step on thread 0 (``coder(pr)`` returns the bit
-// and may set s.status), phase (c), the tail, and phase (a) of the next
-// bit, which overlaps other threads' phase (c): the predictions swap
+// and may set s.status), phase (c) (``ph``), the tail, and phase (a) of the
+// next bit, which overlaps other threads' phase (c): the predictions swap
 // buffers every bit, and each thread reads back only the table entries and
 // row copies it wrote itself. Returns the bit; s.status is the group's.
-template <class Combine, class Step, class Coder>
+template <class Combine, class Step, class Phases, class Coder>
 __device__ __forceinline__ int code_bit(Lane& s, const Model& m, Step& step,
-                                        Coder&& coder) {
+                                        Phases& ph, Coder&& coder) {
   gsync(s);
   mark(s, P_WAIT_A);
   if (s.k == 0) {
@@ -735,13 +786,13 @@ __device__ __forceinline__ int code_bit(Lane& s, const Model& m, Step& step,
   s.status = int(s.misc[1]);
   if (s.status != ST_OK) return y;
   if (s.prof) ++s.acc[P_BITS];
-  phase_c(s, m, y);
+  ph.c(s, m, y);
   mark(s, P_C);
   tail(s, m, step, y);
   i32* p = s.p;
   s.p = s.pn;
   s.pn = p;
-  phase_a(s, m);
+  ph.a(s, m);
   mark(s, P_A);
   return y;
 }
@@ -850,11 +901,13 @@ __device__ __forceinline__ Model load_model(unsigned char* smem,
 
 // Binds this thread to its lane's group and shared region; the group zeroes
 // the region and copies its shared tables' initial contents from the
-// lane's device arena, then runs phase (a) of the first bit. Returns false
-// for a thread past the last lane.
+// lane's device arena, then sets up the phases (``ph``) and runs phase (a)
+// of the first bit. Returns false for a thread past the last lane.
 // prof (or null) receives NPROF clock counters per lane, stamps (or null)
 // each lane's start here and end (save_stamp) on the global timer.
-__device__ __forceinline__ bool init_lane(Lane& s, const Model& m,
+template <class Phases>
+__device__ __forceinline__ bool init_lane(Lane& s, Phases& ph,
+                                          const Model& m,
                                           unsigned char* smem, int G,
                                           int lpb, int lane_words,
                                           const i32* geo, int L, u8* a8,
@@ -907,7 +960,8 @@ __device__ __forceinline__ bool init_lane(Lane& s, const Model& m,
   s.stamp = stamps && s.k == 0 ? stamps + 2 * i64(lane) : nullptr;
   if (s.stamp) s.stamp[0] = globaltimer();
   *lane_out = lane;
-  phase_a(s, m);
+  ph.init(s, m);
+  ph.a(s, m);
   mark(s, P_A);
   return true;
 }

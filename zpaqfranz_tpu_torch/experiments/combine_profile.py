@@ -1,16 +1,19 @@
-"""The CM kernels with the generated combine against the generic one, on
-the card: the units' registers and spills, the profiled phases of one lane,
-and many lanes in one launch.
+"""The CM kernels with the generated combine and phases against the
+generic ones, on the card: the units' registers and spills, the profiled
+phases of one lane, and many lanes in one launch.
 
-For each model it builds both kernels with the model's combine specialised
-(``ops/combine_fast.py``) and with the generic walk forced, both with the
-HCOMP program specialised, and prints each unit's ``ptxas -v`` lines. Then
-one lane per model through the encode kernel with each combine: its rate
-(CUDA events, an unprofiled launch) and thread 0's clock cycles a bit in
-each phase (``LaneLaunch(profile=True)``, ``cm_model.PROFILE``); at the
-first model also the decode kernel. Last, ``--lanes`` lanes in one launch
-of each kernel at the first model, timed alone. Every launch must code as
-the host engine does. One JSON line on stdout, also written to ``--out``.
+For each model it builds both kernels in three variants, each named
+``<combine>/<phases>``: the combine (``ops/combine_fast.py``) and phases
+(a) and (c) (``ops/phases_fast.py``) generated (``fast/fast``, the
+default), the phases generic (``fast/generic``), and both generic
+(``generic/generic``), all with the HCOMP program specialised, and prints
+each unit's ``ptxas -v`` lines. Then one lane per model through the encode
+kernel in each variant: its rate (CUDA events, an unprofiled launch) and
+thread 0's clock cycles a bit in each phase (``LaneLaunch(profile=True)``,
+``cm_model.PROFILE``), with phases (a) and (c) summed; at the first model
+also the decode kernel. Last, ``--lanes`` lanes in one launch of each
+kernel at the first model, timed alone. Every launch must code as the host
+engine does. One JSON line on stdout, also written to ``--out``.
 
     python -m zpaqfranz_tpu_torch.experiments.combine_profile \\
         [--models 4.0 5.0 4 5 3 all-components] [--lane-kib 16] \\
@@ -34,7 +37,12 @@ from ..ops.cm_model import PROFILE, kernel_unit, lanes_to_bytes
 from ..parallel.engine import coded_stream, selector
 from ..zpaql.compiler import compile_config
 
-COMBINES = ("fast", "generic")
+#: (combine, phases) of each variant
+VARIANTS = (("fast", "fast"), ("fast", "generic"), ("generic", "generic"))
+
+
+def label(variant) -> str:
+    return "/".join(variant)
 
 
 def payloads(rng, n: int, size: int) -> list:
@@ -62,9 +70,10 @@ def ptxas_lines(log: str) -> list:
             if "registers" in line or "spill" in line]
 
 
-def timed(launch, model, packed, combine, profile=False):
+def timed(launch, model, packed, variant, profile=False):
     """One launch run alone: (lanes' bytes, ms by CUDA events, job)."""
-    job = launch(model, *packed, combine=combine, profile=profile)
+    job = launch(model, *packed, combine=variant[0], phases=variant[1],
+                 profile=profile)
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -75,19 +84,20 @@ def timed(launch, model, packed, combine, profile=False):
     return lanes_to_bytes(*job.result()), a.elapsed_time(b), job
 
 
-def one_lane(launch, model, packed, want, combine) -> dict:
-    """Rate and per-phase cycles a bit of one lane with ``combine``."""
-    got, ms, job = timed(launch, model, packed, combine)
-    pgot, pms, pjob = timed(launch, model, packed, combine, profile=True)
-    if got != want or pgot != want or job.combine != combine:
-        raise SystemExit(f"{launch.kernel} with the {combine} combine "
-                         f"differs from the host engine")
+def one_lane(launch, model, packed, want, variant) -> dict:
+    """Rate and per-phase cycles a bit of one lane in ``variant``."""
+    got, ms, job = timed(launch, model, packed, variant)
+    pgot, pms, pjob = timed(launch, model, packed, variant, profile=True)
+    if got != want or pgot != want or (job.combine, job.phases) != variant:
+        raise SystemExit(f"{launch.kernel} with {label(variant)} differs "
+                         f"from the host engine")
     prof = dict(zip(PROFILE, pjob.profile()[0].tolist()))
     bits, nbytes = prof.pop("bits"), prof.pop("bytes")
     total = sum(prof.values())
     return {"ms": ms, "us_per_bit": ms * 1e3 / (8 * nbytes),
             "profiled_ms": pms, "cycles_per_bit": total / bits,
             "phases": {k: v / bits for k, v in prof.items()},
+            "a_c_per_bit": (prof["a"] + prof["c"]) / bits,
             "combine_share": prof["combine"] / total}
 
 
@@ -107,18 +117,19 @@ def main(argv=None) -> int:
     out = {"card": torch.cuda.get_device_name(dev), "units": {},
            "one_lane": {}, "wide": {}}
 
-    units = {(name, k, c): kernel_unit(k, model, combine=c)
+    units = {(name, k, v): kernel_unit(k, model, combine=v[0], phases=v[1])
              for name, model in models.items()
-             for k in ("cm_encode", "cm_decode") for c in COMBINES}
+             for k in ("cm_encode", "cm_decode") for v in VARIANTS}
     t0 = time.perf_counter()
     build.build(units.values())
     print(f"built {len(set(map(build.unit_key, units.values())))} units in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    for (name, k, c), unit in units.items():
+    for (name, k, v), unit in units.items():
         rec = build.BUILD_LOG.get(build.unit_key(unit))
         lines = ptxas_lines(str(rec["ptxas"])) if rec else ["(built before)"]
-        out["units"][f"{name} {k} {c}"] = lines
-        print(f"{name} {k} combine {c}: " + " | ".join(lines),
+        out["units"][f"{name} {k} {label(v)}"] = {
+            "ptxas": lines, "seconds": rec["seconds"] if rec else None}
+        print(f"{name} {k} {label(v)}: " + " | ".join(lines),
               file=sys.stderr)
 
     for j, (name, model) in enumerate(models.items()):
@@ -130,16 +141,16 @@ def main(argv=None) -> int:
         if j == 0:
             kinds.append(("decode", cmd.Launch, dec, [selector(model) + pay]))
         for kind, launch, packed, want in kinds:
-            for c in COMBINES:
-                r = one_lane(launch, model, packed, want, c)
-                out["one_lane"][f"{name} {kind} {c}"] = r
+            for v in VARIANTS:
+                r = one_lane(launch, model, packed, want, v)
+                out["one_lane"][f"{name} {kind} {label(v)}"] = r
                 print(f"-m{name} {kind}, one lane of {len(pay)} bytes, "
-                      f"combine {c}: {r['us_per_bit']:.3f} us a bit; "
+                      f"{label(v)}: {r['us_per_bit']:.3f} us a bit; "
                       f"profiled {r['cycles_per_bit']:.0f} cycles a bit = "
-                      + " + ".join(f"{k} {v:.0f}"
-                                   for k, v in r["phases"].items())
-                      + f" (combine {100 * r['combine_share']:.1f}%)",
-                      file=sys.stderr)
+                      + " + ".join(f"{k} {c:.0f}"
+                                   for k, c in r["phases"].items())
+                      + f" (a + c {r['a_c_per_bit']:.0f}, combine "
+                      f"{100 * r['combine_share']:.1f}%)", file=sys.stderr)
 
     name, model = next(iter(models.items()))
     pays = payloads(rng, args.lanes, args.wide_kib << 10)
@@ -149,15 +160,16 @@ def main(argv=None) -> int:
     for kind, launch, packed, want in (
             ("encode", cme.Launch, enc, [s[:-6] for s in streams]),
             ("decode", cmd.Launch, dec, [selector(model) + p for p in pays])):
-        for c in COMBINES:
-            got, ms, job = timed(launch, model, packed, c)
+        for v in VARIANTS:
+            got, ms, job = timed(launch, model, packed, v)
             if got != want:
-                raise SystemExit(f"{kind} of {args.lanes} lanes with the "
-                                 f"{c} combine differs from the host engine")
+                raise SystemExit(f"{kind} of {args.lanes} lanes with "
+                                 f"{label(v)} differs from the host engine")
             mbps = sum(map(len, pays)) / ms / 1e3
-            out["wide"][f"{name} {kind} {c}"] = {"ms": ms, "MBps": mbps}
+            out["wide"][f"{name} {kind} {label(v)}"] = {"ms": ms,
+                                                        "MBps": mbps}
             print(f"-m{name} {kind}, {args.lanes} lanes of "
-                  f"{args.wide_kib} KiB, combine {c}: {ms:.1f} ms, "
+                  f"{args.wide_kib} KiB, {label(v)}: {ms:.1f} ms, "
                   f"{mbps:.4f} MB/s", file=sys.stderr)
     line = json.dumps(out)
     path = pathlib.Path(args.out)

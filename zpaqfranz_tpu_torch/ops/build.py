@@ -9,10 +9,12 @@ Nothing is built at import time: a wrapper builds its kernel the first time
 it launches it.
 
 The CM kernels are also built once per model whose HCOMP program
-``ops/hcomp_fast.py`` or whose combine ``ops/combine_fast.py`` specialises:
-the generated header (``build/gen-<digest>.cuh``: ``struct HcompFast``
-with ``CM_HCOMP_FAST`` defined, ``struct CombineFast`` with
-``CM_COMBINE_FAST``, or both; ``cm_model.kernel_unit`` writes it) and a
+``ops/hcomp_fast.py``, whose combine ``ops/combine_fast.py`` or whose phases
+(a) and (c) ``ops/phases_fast.py`` specialises: the generated header
+(``build/gen-<digest>.cuh``: ``struct HcompFast`` with ``CM_HCOMP_FAST``
+defined, ``struct CombineFast`` with ``CM_COMBINE_FAST``, ``struct
+PhasesFast`` with ``CM_PHASES_FAST``, whichever the launch runs;
+``cm_model.kernel_unit`` writes it) and a
 two-line unit that includes it before the kernel's source
 (``build/<kernel>-<digest>.cu``) go to the build directory, and the
 library's name hashes the source, the headers and the generated text. A

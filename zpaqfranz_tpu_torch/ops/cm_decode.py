@@ -40,7 +40,7 @@ from .sha1 import pack_messages
 __all__ = ["Layout", "Launch", "lut", "cm_decode", "cm_decode_plain",
            "CMDecodeError", "initial_lane_state", "lane_bytes",
            "pack_streams", "lanes_to_bytes", "launches", "hcomp_launches",
-           "combine_launches"]
+           "combine_launches", "phases_launches"]
 
 #: kernel launches made by ``cm_decode`` in this process
 launches = 0
@@ -48,6 +48,8 @@ launches = 0
 hcomp_launches = {"fast": 0, "interp": 0}
 #: ... of them by combine (``cm_model.COMBINE_STEPS``)
 combine_launches = {"fast": 0, "generic": 0}
+#: ... of them by phases (a) and (c) (``cm_model.PHASES_STEPS``)
+phases_launches = {"fast": 0, "generic": 0}
 
 _REASON = {ST_OVERRUN: "decoded past its output capacity",
            ST_CORRUPT: "coded stream is corrupt",
@@ -91,6 +93,7 @@ class Launch(LaneLaunch):
         launches += 1
         hcomp_launches[self.hcomp] += 1
         combine_launches[self.combine] += 1
+        phases_launches[self.phases] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,7 @@ from .sha1 import pack_messages
 
 __all__ = ["Launch", "cm_encode", "cm_encode_plain", "CMEncodeError",
            "lane_cap", "pack_payloads", "launches", "hcomp_launches",
-           "combine_launches"]
+           "combine_launches", "phases_launches"]
 
 #: kernel launches made by ``cm_encode`` in this process
 launches = 0
@@ -44,6 +44,8 @@ launches = 0
 hcomp_launches = {"fast": 0, "interp": 0}
 #: ... of them by combine (``cm_model.COMBINE_STEPS``)
 combine_launches = {"fast": 0, "generic": 0}
+#: ... of them by phases (a) and (c) (``cm_model.PHASES_STEPS``)
+phases_launches = {"fast": 0, "generic": 0}
 
 _REASON = {ST_OVERRUN: "coded past its output capacity",
            ST_CORRUPT: "model has an unknown component",
@@ -92,6 +94,7 @@ class Launch(LaneLaunch):
         launches += 1
         hcomp_launches[self.hcomp] += 1
         combine_launches[self.combine] += 1
+        phases_launches[self.phases] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,11 @@ plain predictor the scalar ``zpaql.vm.VM`` per lane, without a limit).
 The kernels' combine (phase (b)) runs in one of two ways too: a model whose
 combine ``ops/combine_fast.try_compile`` accepts runs it as generated
 straight-line code (``"fast"``), any other through the generic walk over
-the model's steps (``"generic"``). Both give the same bits. The generated
-texts of a launch go into one build unit per kernel and model
-(``kernel_unit``).
+the model's steps (``"generic"``). So do its phases (a) and (c): generated
+per model and placement by ``ops/phases_fast.try_compile`` (``"fast"``), or
+``phase_a`` / ``phase_c`` reading the model on every bit (``"generic"``).
+Each pair gives the same bits. The generated texts of a launch go into one
+build unit per kernel and model (``kernel_unit``).
 
 The plain predictor batches lanes in ``int64`` tensors (CPU ``uint32`` has
 no arithmetic) and keeps the arenas as ``uint8`` / ``int32`` tensors widened
@@ -40,7 +42,7 @@ from .. import trace
 from ..models import tables as T
 from ..zpaql.header import Model
 from ..zpaql.vm import VM, ZPAQLRuntimeError
-from . import build, combine_fast
+from . import build, combine_fast, phases_fast
 from .hcomp_fast import try_compile
 
 #: held while a launch adds to its kernel's count (``counted``)
@@ -57,6 +59,8 @@ MAX_HCOMP_STEPS = 1 << 24
 HCOMP_STEPS = ("fast", "interp")
 #: the combines of the lane kernels
 COMBINE_STEPS = ("fast", "generic")
+#: the phases (a) and (c) of the lane kernels
+PHASES_STEPS = ("fast", "generic")
 
 # combined LUT: squash(4096) | stretch(32768) | sns(1024), as codec_arena
 SQ_OFF = 0
@@ -199,13 +203,33 @@ def combine_step(model: Model, plan: "Placement",
     return combine
 
 
+def phases_step(model: Model, plan: "Placement",
+                phases: Optional[str] = None) -> str:
+    """The phases (a) and (c) a launch of ``model`` at placement ``plan``
+    runs: ``"fast"`` when ``phases_fast.try_compile`` accepts the model,
+    else ``"generic"``; ``phases`` forces one ("fast" raises for a model
+    the generator refuses)."""
+    fast = phases_fast.try_compile(model, plan, Layout(model)) is not None
+    if phases is None:
+        return "fast" if fast else "generic"
+    if phases not in PHASES_STEPS:
+        raise ValueError(f"phases must be one of {PHASES_STEPS}, not "
+                         f"{phases!r}")
+    if phases == "fast" and not fast:
+        raise ValueError("the model's phases are outside what the "
+                         "generator specialises")
+    return phases
+
+
 def kernel_unit(kernel: str, model: Model, hcomp: Optional[str] = None,
-                combine: Optional[str] = None) -> build.Unit:
+                combine: Optional[str] = None,
+                phases: Optional[str] = None) -> build.Unit:
     """The build unit of ``kernel`` (``"cm_decode"`` or ``"cm_encode"``)
-    that a launch of ``model`` runs with HCOMP step ``hcomp`` and combine
-    ``combine`` (None: each specialised where the model allows): the
-    kernel alone, or the kernel with the generated header that holds the
-    specialised HCOMP program, the specialised combine, or both."""
+    that a launch of ``model`` runs with HCOMP step ``hcomp``, combine
+    ``combine`` and phases ``phases`` (None: each specialised where the
+    model allows): the kernel alone, or the kernel with the generated
+    header that holds whichever of the specialised HCOMP program, combine
+    and phases it runs."""
     hcomp = hcomp_step(model, hcomp)
     plan = Placement(model, hcomp)
     parts = []
@@ -214,6 +238,9 @@ def kernel_unit(kernel: str, model: Model, hcomp: Optional[str] = None,
     if combine_step(model, plan, combine) == "fast":
         parts += [combine_fast.try_compile(model, plan.rows).cuda_source(),
                   "#define CM_COMBINE_FAST 1"]
+    if phases_step(model, plan, phases) == "fast":
+        parts += [phases_fast.try_compile(model, plan, Layout(model))
+                  .cuda_source(), "#define CM_PHASES_FAST 1"]
     return (kernel, "\n".join(parts) + "\n") if parts else kernel
 
 
@@ -494,7 +521,11 @@ class LaneLaunch:
     card. ``self.hcomp`` records the step. ``combine`` is the combine
     (``combine_step``): None runs the generated one where the generator
     accepts the model, ``"generic"`` forces the generic walk;
-    ``self.combine`` records it. ``max_hcomp_steps`` bounds the
+    ``self.combine`` records it. ``phases`` are phases (a) and (c)
+    (``phases_step``), likewise: None the generated ones where the
+    generator accepts the model, ``"generic"`` forces ``phase_a`` /
+    ``phase_c``; ``self.phases`` records them. ``max_hcomp_steps`` bounds
+    the
     instructions an interpreted run may execute for one byte (default
     ``MAX_HCOMP_STEPS``): past it the lane fails as a runaway program. A
     specialised program has no loops and no limit.
@@ -511,13 +542,14 @@ class LaneLaunch:
                  in_len: torch.Tensor, out_cap: torch.Tensor,
                  profile: bool = False, hcomp: Optional[str] = None,
                  max_hcomp_steps: Optional[int] = None,
-                 combine: Optional[str] = None):
+                 combine: Optional[str] = None,
+                 phases: Optional[str] = None):
         check_lanes(model, src, in_off, in_len, out_cap)
         if src.device.type != "cuda":
             raise ValueError(f"no {self.kernel} kernel for device "
                              f"{src.device}")
         self.prepare(model, src, in_off, in_len, out_cap, profile, hcomp,
-                     max_hcomp_steps, combine)
+                     max_hcomp_steps, combine, phases)
 
     @classmethod
     def code(cls, model: Model, src: torch.Tensor, in_off: torch.Tensor,
@@ -529,14 +561,16 @@ class LaneLaunch:
         with trace.span("cm.launch", lanes=int(in_off.shape[0])) as sp:
             launch = cls(model, src, in_off, in_len, out_cap,
                          max_hcomp_steps=max_hcomp_steps).run()
-            sp.add(hcomp=launch.hcomp, combine=launch.combine)
+            sp.add(hcomp=launch.hcomp, combine=launch.combine,
+                   phases=launch.phases)
         return launch.result()
 
     def prepare(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
                 in_len: torch.Tensor, out_cap: torch.Tensor,
                 profile: bool = False, hcomp: Optional[str] = None,
                 max_hcomp_steps: Optional[int] = None,
-                combine: Optional[str] = None) -> None:
+                combine: Optional[str] = None,
+                phases: Optional[str] = None) -> None:
         """Build the launch's arguments on the inputs' device."""
         dev = src.device
         L = in_off.shape[0]
@@ -555,8 +589,10 @@ class LaneLaunch:
         self.hcomp = hcomp_step(model, hcomp)
         self.plan = plan = Placement(model, self.hcomp)
         self.combine = combine_step(model, plan, combine)
+        self.phases = phases_step(model, plan, phases)
         #: the build unit: the kernel, or the kernel with the generated code
-        self.unit = kernel_unit(self.kernel, model, self.hcomp, self.combine)
+        self.unit = kernel_unit(self.kernel, model, self.hcomp, self.combine,
+                                self.phases)
         comps = np.zeros((model.n, _NPAR), np.int32)
         for i, cp in enumerate(lay.comps):
             comps[i, :len(cp)] = cp
