@@ -22,7 +22,7 @@ from zpaqfranz_tpu.parallel import engine as ref_engine
 from zpaqfranz_tpu.zpaql.compiler import compile_config as ref_compile
 
 from zpaqfranz_tpu_torch import convert
-from zpaqfranz_tpu_torch.codec.methods import ALL_COMPONENTS_CFG
+from zpaqfranz_tpu_torch.codec.methods import ALL_COMPONENTS_CFG, make_model
 from zpaqfranz_tpu_torch.experiments import mb_access as mb
 from zpaqfranz_tpu_torch.experiments import mb_vmem_probe as mp
 from zpaqfranz_tpu_torch.experiments import sanitize as sz
@@ -417,7 +417,7 @@ def test_cm_kernels_with_tables_in_device_memory(card):
     _round_trip(card, ref, model, raws)
 
 
-@pytest.mark.parametrize("method", ["3", "4.0"])
+@pytest.mark.parametrize("method", ["3", "4.0", "5.0"])
 def test_device_add_writes_host_bytes(card, tmp_path, monkeypatch, method):
     """An add on the card writes the host engine's archive bytes, and the
     archive restores and verifies on the card."""
@@ -443,7 +443,7 @@ def test_device_add_writes_host_bytes(card, tmp_path, monkeypatch, method):
     assert verify_archive(data, jd)[0] == len(jd.block)
 
 
-@pytest.mark.parametrize("method", ["0", "3", "4.0"])
+@pytest.mark.parametrize("method", ["0", "3", "4.0", "5.0"])
 def test_slice_on_card(card, tmp_path, monkeypatch, method):
     src = tmp_path / "src"
     (src / "sub").mkdir(parents=True)
@@ -465,6 +465,50 @@ def test_slice_on_card(card, tmp_path, monkeypatch, method):
                                                   use_device=False)
     assert cmd.launches == before[0] + (method != "0")
     assert sha1.launches == before[1] + 1
+
+
+def test_m5_lanes_past_the_count_limit_on_card(card):
+    """``5.0`` (23 components, G = 32) over one more lane than a block
+    holds, 4-64 KiB each of text, random bytes and repeats: past the
+    direct CM's count limit (1,020; its order-0 counter trains once a
+    byte) and with MATCH hits. The coded lanes equal the native engine's
+    segments, ``cm_decode`` restores them, and ``cm.launch`` counts the
+    specialised HCOMP step, combine and phases."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zpaqfranz_tpu_torch import trace
+    from zpaqfranz_tpu_torch.parallel.engine import coded_stream, selector
+
+    model = make_model("5.0")[0]
+    L = Placement(model, "fast").lanes_per_block + 1
+    assert L == 6
+    rng = np.random.default_rng(21)
+    words = [bytes(rng.integers(97, 123, int(k), dtype=np.uint8))
+             for k in rng.integers(2, 9, 500)]
+    raws = []
+    for k, size in enumerate((4096, 9000, 16384, 30000, 48000, 65536)):
+        text = b" ".join(words[i] for i in rng.integers(0, 500, size // 4))
+        noise = rng.integers(0, 256, size // 4, dtype=np.uint8).tobytes()
+        lane = text[:size // 2] + noise + text[:size // 4]
+        raws.append(lane[:size])
+    prefix = selector(model)
+    coded = [coded_stream(model, r) for r in raws]
+    packed = cme.pack_payloads([prefix + r for r in raws], card)
+    trace.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = cmd.lanes_to_bytes(*cme.cm_encode(model, *packed))
+        launch = next(r for r in trace.records() if r.name == "cm.launch")
+    finally:
+        trace.clear()
+    assert got == [c[:-6] for c in coded]
+    assert launch.counts["lanes"] == L
+    assert [launch.counts[k] for k in ("hcomp", "combine", "phases")] == \
+        ["fast"] * 3
+    streams = cmd.pack_streams(coded, [len(prefix) + len(r) + 64
+                                       for r in raws], card)
+    back = cmd.lanes_to_bytes(*cmd.cm_decode(model, *streams))
+    assert back == [prefix + r for r in raws]
 
 
 def _kernel_matches_plain(run, key, *args):

@@ -13,7 +13,7 @@ import torch
 from zpaqfranz_tpu_torch import trace
 from zpaqfranz_tpu_torch.codec.methods import make_model
 from zpaqfranz_tpu_torch.ops import cm_decode as cmd, cm_encode as cme
-from zpaqfranz_tpu_torch.ops.cm_model import Placement
+from zpaqfranz_tpu_torch.ops.cm_model import Placement, lane_bytes
 from zpaqfranz_tpu_torch.parallel.engine import coded_stream, selector
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +75,36 @@ def test_cm_lane_stamps_change_no_byte(card, method):
     wait = recs["cm.wait"].counts
     assert len(wait["lane_ns"]) == L
     assert 0 < max(wait["lane_ns"]) <= wait["kernel_ns"]
+
+
+@pytest.mark.parametrize("method", ["3", "4.0", "5.0"])
+def test_cm_spans_count_lane_state_and_bits(card, method):
+    """A traced encode of one more lane than a block holds: ``cm.launch``
+    counts the lanes' state on the card, L x ``lane_bytes`` of the
+    specialised step, and ``cm.wait`` one ``lane_bits`` a lane, 8 x its
+    payload; an untraced launch records nothing and does not stamp."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = make_model(method)[0]
+    L = Placement(model).lanes_per_block + 1
+    pays = [selector(model) + b"lane %d: " % k
+            + b"the cat sat on the mat " * (k % 5) for k in range(L)]
+    packed = cme.pack_payloads(pays, card)
+    want = [c[:-6] for c in (coded_stream(model, p[len(selector(model)):])
+                             for p in pays)]
+    trace.clear()
+    try:
+        assert cmd.lanes_to_bytes(*cme.cm_encode(model, *packed)) == want
+        assert trace.records() == []
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = cmd.lanes_to_bytes(*cme.cm_encode(model, *packed))
+        recs = {r.name: r for r in trace.records()}
+    finally:
+        trace.clear()
+    assert got == want
+    launch = recs["cm.launch"].counts
+    assert launch["hcomp"] == "fast"
+    assert launch["state_bytes"] == L * lane_bytes(model, "fast")
+    wait = recs["cm.wait"].counts
+    assert len(wait["lane_bits"]) == len(wait["lane_ns"]) == L
+    assert wait["lane_bits"] == [8 * len(p) for p in pays]

@@ -3,7 +3,9 @@ records nothing; under ``torch.profiler`` it records an add, a test and a
 damaged test through the CLI on the plain PyTorch versions, every span
 under its operation's root, children inside their parents, pool threads'
 spans under the span that handed them the work; the buffer is capped; the
-profiler's ``zpaq::`` ranges lie on the records' clock."""
+profiler's ``zpaq::`` ranges lie on the records' clock; a CM launch
+prepared on the CPU counts its lane state and its lanes' coded bits only
+while traced."""
 
 import concurrent.futures
 import dataclasses
@@ -13,12 +15,17 @@ import time
 
 import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import zpaqfranz_tpu_torch.device as zdevice
 from zpaqfranz_tpu_torch import cli, trace
+from zpaqfranz_tpu_torch.codec.methods import make_model
 from zpaqfranz_tpu_torch.jidac import add as port_add, extract as port_extract
 from zpaqfranz_tpu_torch.jidac.index import read_archive
+from zpaqfranz_tpu_torch.ops import build, cm_decode as cmd, cm_encode as cme
+from zpaqfranz_tpu_torch.ops.cm_model import lane_bytes
+from zpaqfranz_tpu_torch.parallel.engine import selector
 
 DATE = 20260102030405
 
@@ -320,3 +327,58 @@ def test_damaged_archive_closes_every_span_with_its_error(
     hashes = [r for r in recs if r.name == "verify.hash"]
     assert len(hashes) == len(port_extract._batches(jd))
     assert trace.current() is None
+
+
+def cpu_launch(kind):
+    """``kind`` (a lane kernel's launch) prepared on the CPU, whose kernel
+    call ``no_kernel`` stands in for."""
+    class CpuLaunch(kind):
+        def __init__(self, model, src, in_off, in_len, out_cap, **kw):
+            self.prepare(model, src, in_off, in_len, out_cap, **kw)
+    return CpuLaunch
+
+
+def no_kernel(unit, symbol, device, *args, written, **hints):
+    """The kernel's writes: each lane's output length (its index + 5), a
+    status of 0, and stamps 1,000 ns apart."""
+    out_len, status, *stamps = written
+    out_len.copy_(torch.arange(5, 5 + out_len.numel()))
+    status.zero_()
+    for t in stamps:
+        t[:, 0] = 1000
+        t[:, 1] = 1000 * torch.arange(2, 2 + t.shape[0])
+
+
+@pytest.mark.parametrize("method", ["3", "4.0", "5.0"])
+def test_cm_launch_counts_its_state_and_each_lanes_bits(monkeypatch,
+                                                         method):
+    """Traced, ``cm.launch`` counts the lanes' state on the device (L x
+    ``lane_bytes`` of the launch's HCOMP step) and ``cm.wait`` each lane's
+    coded bits, 8 x its payload (an encode lane's input, a decode lane's
+    output), in the order of ``lane_ns``; untraced, nothing is recorded
+    and no launch stamps."""
+    monkeypatch.setattr(build, "call", no_kernel)
+    model = make_model(method)[0]
+    raws = [selector(model) + b"the cat sat on the mat" * k
+            for k in (1, 3)]
+    src = torch.frombuffer(bytearray(b"".join(raws)), dtype=torch.uint8)
+    lens = torch.tensor([len(r) for r in raws])
+    offs = torch.tensor([0, len(raws[0])])
+    for kind, bits in ((cme.Launch, 8 * lens), (cmd.Launch,
+                                                8 * torch.tensor([5, 6]))):
+        launch = cpu_launch(kind)
+        launch.code(model, src, offs, lens, lens + 64)
+        assert trace.records() == []
+        with profiled():
+            launch.code(model, src, offs, lens, lens + 64)
+        recs = {r.name: r for r in trace.records()}
+        trace.clear()
+        assert recs["cm.launch"].counts["state_bytes"] == \
+            2 * lane_bytes(model, recs["cm.launch"].counts["hcomp"])
+        wait = recs["cm.wait"].counts
+        assert wait["lane_ns"] == [1000, 2000]
+        assert wait["lane_bits"] == bits.tolist()
+    interp = cpu_launch(cme.Launch)(model, src, offs, lens, lens + 64,
+                                    hcomp="interp")
+    assert interp.stamps is None
+    assert interp.state_bytes() == 2 * lane_bytes(model, "interp")

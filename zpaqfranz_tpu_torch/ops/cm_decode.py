@@ -95,6 +95,9 @@ class Launch(LaneLaunch):
         combine_launches[self.combine] += 1
         phases_launches[self.phases] += 1
 
+    def lane_payload(self) -> torch.Tensor:
+        return self.out_len
+
 
 # ---------------------------------------------------------------------------
 # plain PyTorch version

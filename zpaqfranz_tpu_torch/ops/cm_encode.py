@@ -96,6 +96,9 @@ class Launch(LaneLaunch):
         combine_launches[self.combine] += 1
         phases_launches[self.phases] += 1
 
+    def lane_payload(self) -> torch.Tensor:
+        return self.in_len
+
 
 # ---------------------------------------------------------------------------
 # plain PyTorch version

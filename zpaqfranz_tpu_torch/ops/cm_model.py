@@ -510,9 +510,12 @@ class LaneLaunch:
     clock cycles per phase (``PROFILE``), read with ``profile()``.
     While the tracer records (``trace.enabled``), it also writes the
     card's nanosecond clock when each lane starts and ends (``stamps``,
-    (L, 2) int64), and ``result()`` adds each lane's nanoseconds
-    (``lane_ns``) and the launch's, from the first start to the last end
-    (``kernel_ns``), to its span ``cm.wait``; else ``stamps`` is None.
+    (L, 2) int64), ``code()`` adds the lane state's device bytes
+    (``state_bytes``) to its span ``cm.launch``, and ``result()`` adds
+    each lane's nanoseconds (``lane_ns``), the launch's, from the first
+    start to the last end (``kernel_ns``), and each lane's coded bits
+    (``lane_bits``, 8 x ``lane_payload()``) to its span ``cm.wait``; else
+    ``stamps`` is None and nothing is counted.
 
     ``hcomp`` is the HCOMP step (``hcomp_step``): None runs the program
     specialised when ``try_compile`` accepts it, else the interpreter, as
@@ -531,8 +534,9 @@ class LaneLaunch:
     specialised program has no loops and no limit.
 
     Subclasses name the kernel (its library under ``csrc/`` and the prefix
-    of its ``_launch`` symbol), the error, the reason of each status, and
-    count their launches in ``counted()``."""
+    of its ``_launch`` symbol), the error, the reason of each status, the
+    payload bytes of each lane (``lane_payload()``), and count their
+    launches in ``counted()``."""
 
     kernel = ""
     error: type = RuntimeError
@@ -563,6 +567,8 @@ class LaneLaunch:
                          max_hcomp_steps=max_hcomp_steps).run()
             sp.add(hcomp=launch.hcomp, combine=launch.combine,
                    phases=launch.phases)
+            if launch.stamps is not None:
+                sp.add(state_bytes=launch.state_bytes())
         return launch.result()
 
     def prepare(self, model: Model, src: torch.Tensor, in_off: torch.Tensor,
@@ -609,6 +615,7 @@ class LaneLaunch:
         # ZPAQL R, H and M: the interpreter's alone (null pointers else)
         self._rmem = (torch.zeros((L, 256), dtype=torch.int32, device=dev)
                       if self.hcomp == "interp" else None)
+        self.in_len = in_len
         self.out_off = out_offsets(out_cap)
         self.out = torch.empty(int(out_cap.sum()) or 1, dtype=torch.uint8,
                                device=dev)
@@ -634,6 +641,22 @@ class LaneLaunch:
 
     def counted(self) -> None:
         raise NotImplementedError
+
+    def lane_payload(self) -> torch.Tensor:
+        """(L,) int64 payload bytes of each lane, selector prefix included:
+        what an encode lane codes, what a decode lane restores."""
+        raise NotImplementedError
+
+    def state_bytes(self) -> int:
+        """Device bytes of the launch's lane state: the u8 and u32 arenas,
+        and for the interpreter H where it lives in device memory, M and
+        ZPAQL R (L x ``lane_bytes`` of the launch's HCOMP step)."""
+        a8, a32, hmem, mmem = self._state
+        own = [a8, a32, mmem, self._rmem]
+        if self.plan.geo["ht"] < 0:
+            own.append(hmem)
+        return sum(t.numel() * t.element_size() for t in own
+                   if t is not None)
 
     def run(self) -> "LaneLaunch":
         """Launch the kernel on the current stream (once: it consumes the
@@ -663,7 +686,8 @@ class LaneLaunch:
             if self.stamps is not None:
                 ns = self.stamps.cpu()
                 sp.add(lane_ns=(ns[:, 1] - ns[:, 0]).tolist(),
-                       kernel_ns=int(ns[:, 1].max() - ns[:, 0].min()))
+                       kernel_ns=int(ns[:, 1].max() - ns[:, 0].min()),
+                       lane_bits=(8 * self.lane_payload().cpu()).tolist())
         return self.out, self.out_off, self.out_len
 
 
