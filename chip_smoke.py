@@ -1943,7 +1943,7 @@ def device_bwt(torch, np, dev, seed: int) -> None:
           "the device BWT does not invert through the -m3 postprocessor")
     b_ms = (2 * len(data) + 5) / HBM_BYTES_PER_S * 1e3
     log(f"device BWT, one {len(data)}-byte block of text (-m3's block "
-        f"size): {rounds} rounds ({len(sorts)} stable sorts), "
+        f"size): {rounds} rounds ({len(sorts)} sorts), "
         f"bwt_encode_device {dev_s:.3f} s on the card (suffix sort "
         f"{sa_s:.3f} s, torch.sort {sort_ms:.1f} ms = "
         f"{sort_ms / 1e3 / sa_s:.1%} of it), native.bwt_encode "

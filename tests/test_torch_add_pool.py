@@ -4,8 +4,10 @@ a store block's coding) on the add's pool and takes them in job order
 alike: on the CPU through the card path's launch code (``device="cpu"``,
 each lane coded by the native engine), the archive is the host engine's at
 every pool size; a job's failure is raised from the ``a`` without a hang;
-a resumed add writes an uninterrupted add's bytes; and the trace holds one
-``add.prepare_wait`` a job on the operation's thread."""
+a resumed add writes an uninterrupted add's bytes; the trace holds one
+``add.prepare_wait`` a job on the operation's thread; and the card add's
+BWT jobs are sorted on its device, the host engine's and the streaming
+add's on the host."""
 
 import dataclasses
 import pathlib
@@ -22,6 +24,7 @@ from zpaqfranz_tpu_torch import cli, trace
 from zpaqfranz_tpu_torch.jidac import add as port_add
 from zpaqfranz_tpu_torch.ops import cm_encode as cme
 from zpaqfranz_tpu_torch.parallel import engine
+from zpaqfranz_tpu_torch.pre import bwt_device
 
 from test_torch_bwt_jobs import _native_lanes, _words
 
@@ -96,12 +99,12 @@ def spy_prepares(monkeypatch, fail=None):
     seen = {"raws": [], "stored": 0}
     lock = threading.Lock()
 
-    def spy(pre, raw):
+    def spy(pre, raw, bwt=None):
         with lock:
             seen["raws"].append(raw)
         if fail is not None and raw == fail[1]:
             raise RuntimeError(f"job {fail[0]} failed")
-        payload, store = PREPARE(pre, raw)
+        payload, store = PREPARE(pre, raw, bwt)
         with lock:
             seen["stored"] += int(store)
         return payload, store
@@ -211,3 +214,54 @@ def test_trace_holds_a_prepare_wait_a_job(tree, monkeypatch, engine_flag):
     trace.clear()
     assert got == pytest.approx(
         1000.0 * sum(r.seconds for r in waits)) and got > 0
+
+
+#: the streaming add's form of each BWT method
+STREAMING = {"3.0": "s0.3ci1", "x0.7ci1": "s0.7ci1"}
+
+
+def bwt_counts(run):
+    """``run()`` under the profiler and an operation's root span: the
+    ``pre.bwt`` spans' counts."""
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]), trace.span("op.a"):
+        run()
+    got = [r.counts for r in trace.records() if r.name == "pre.bwt"]
+    trace.clear()
+    return got
+
+
+@pytest.mark.parametrize("method", ["3.0", "x0.7ci1"])
+def test_card_add_sorts_every_bwt_job_on_its_device(tree, monkeypatch,
+                                                    method):
+    """Every BWT job of the card add goes through ``bwt_device`` on the
+    add's device (``card`` 1, its rounds and its batch of at most the
+    pool's four jobs counted); the host engine add and the streaming add
+    never call it (``card``, ``rounds`` and ``batch`` 0); the card add
+    writes the host engine's bytes."""
+    calls = []
+    lock = threading.Lock()
+    encode = bwt_device.BatchedBwt.encode
+
+    def spy(self, data):
+        with lock:
+            calls.append(self.dev)
+        return encode(self, data)
+    monkeypatch.setattr(bwt_device.BatchedBwt, "encode", spy)
+    host = bwt_counts(lambda: card_add("h.zpaq", method, 4,
+                                       use_device=False))
+    stream = bwt_counts(lambda: port_add.add(
+        "s.zpaq", ["src"], method=STREAMING[method], date=DATE,
+        device="cpu"))
+    assert not calls
+    assert len(host) >= 8 and stream
+    assert all(c["card"] == c["rounds"] == c["batch"] == 0
+               for c in host + stream)
+    card = bwt_counts(lambda: card_add("c.zpaq", method, 4))
+    assert len(calls) == len(card) == len(host)
+    assert all(str(d) == "cpu" for d in calls)
+    assert all(c["card"] == 1 and c["rounds"] > 0 and 1 <= c["batch"] <= 4
+               for c in card)
+    assert pathlib.Path("c.zpaq").read_bytes() == \
+        pathlib.Path("h.zpaq").read_bytes()
+

@@ -1305,6 +1305,35 @@ def test_bwt_encode_device_on_card(card, kind):
         data[:5000], device="cpu"))
 
 
+def test_card_add_sorts_its_bwt_jobs_on_the_card(card, tmp_path,
+                                                monkeypatch):
+    """The card add at ``3.0`` of a ~8 MiB tree on 8 pool threads, the
+    jobs waiting sorted together: every BWT job's suffix sort runs on the
+    card (``bwt_device.launches`` rises by the archive's d blocks, each a
+    BWT job), and the archive is the host engine's, byte for byte."""
+    rng = np.random.default_rng(47)
+    vocab = [bytes(rng.integers(97, 123, int(k), dtype=np.uint8))
+             for k in rng.integers(2, 10, 3000)]
+    src = tmp_path / "src"
+    src.mkdir()
+    for k in range(4):
+        words = b" ".join(vocab[i] for i in
+                          rng.integers(0, len(vocab), 300_000))
+        (src / f"t{k}.txt").write_bytes(words[:1_600_000])
+    code = rng.integers(0, 256, 1_800_000, dtype=np.uint8)
+    code[::97] = 0xE8
+    (src / "c.bin").write_bytes(code.tobytes())
+    monkeypatch.chdir(tmp_path)
+    add("h.zpaq", ["src"], method="3.0", date=DATE, threads=8,
+        use_device=False)
+    before = bwt_device.launches
+    add("d.zpaq", ["src"], method="3.0", date=DATE, threads=8)
+    data = (tmp_path / "d.zpaq").read_bytes()
+    assert data == (tmp_path / "h.zpaq").read_bytes()
+    jobs = len(read_archive(data).block)
+    assert jobs >= 8 and bwt_device.launches == before + jobs
+
+
 def test_batched_predictor_on_card(card):
     """BatchedPredictor with no device runs on the card: three lanes in
     lockstep over every component type give each lane the scalar

@@ -209,7 +209,9 @@ def test_bwt_is_recorded_under_add_prepare(tmp_path, monkeypatch,
                                            lanes_on_cpu, engine):
     """A tiny ``-method 3.0`` add: one ``pre.bwt`` with the job's raw
     bytes inside each ``add.prepare``, on the host engine's pool threads
-    (handed ``op.a``) and on the card path (the plain CM coder)."""
+    (handed ``op.a``; ``card``, ``rounds`` and ``batch`` 0) and on the
+    card path (the plain CM coder; the suffix sort on its device, ``card``
+    1, its rounds, and a batch of the one job)."""
     monkeypatch.chdir(tmp_path)
     bwt_tree(tmp_path)
     with profiled():
@@ -221,8 +223,13 @@ def test_bwt_is_recorded_under_add_prepare(tmp_path, monkeypatch,
     bwts = [r for r in recs if r.name == "pre.bwt"]
     assert len(prepares) == len(bwts) == 1
     assert sorted(r.parent for r in bwts) == sorted(prepares)
+    card = int(engine == "-tpu")
     for r in bwts:
-        assert r.counts == {"bytes": prepares[r.parent].counts["raw"]}
+        assert set(r.counts) == {"bytes", "card", "rounds", "batch"}
+        assert r.counts["bytes"] == prepares[r.parent].counts["raw"]
+        assert r.counts["card"] == card
+        assert (r.counts["rounds"] > 0) == bool(card)
+        assert r.counts["batch"] == card
     assert sum(r.counts["bytes"] for r in bwts) == 57
     op = next(r for r in recs if r.name == "op.a")
     assert all(r.parent == op.id for r in prepares.values())

@@ -419,8 +419,8 @@ def looks_incompressible(payload: bytes) -> bool:
     return len(lz) >= len(probe) - (len(probe) >> 6)
 
 
-def prepare_payload(pre, payload: bytes) -> Tuple[bytes, bool]:
-    """Apply the method's preprocessor (host side).
+def prepare_payload(pre, payload: bytes, bwt=None) -> Tuple[bytes, bool]:
+    """Apply the method's preprocessor.
 
     Returns ``(bytes_to_code, store)``. ``store=True`` means the adaptive
     store decision fired: the ORIGINAL payload should be written as a raw
@@ -428,7 +428,12 @@ def prepare_payload(pre, payload: bytes) -> Tuple[bytes, bool]:
     per-block redundancy test).
 
     Composite transforms (N2=5/6/7) apply E8E9 BEFORE LZ77/BWT, exactly as
-    the reference LZBuffer ctor does."""
+    the reference LZBuffer ctor does, on the host. With ``bwt`` (the card
+    add's ``pre/bwt_device.BatchedBwt``) the BWT's suffix sort runs on its
+    device, else on the host (``native.bwt_encode``); both give the same
+    bytes. The ``pre.bwt`` span counts ``card`` (1 on the device), the
+    prefix doubling's ``rounds`` and the jobs sorted in its ``batch`` (0
+    on the host)."""
     if pre.transform in (1, 2):
         if looks_incompressible(payload):
             return payload, True
@@ -463,9 +468,14 @@ def prepare_payload(pre, payload: bytes) -> Tuple[bytes, bool]:
             return payload, True
         return lz, False
     if pre.transform == 3:
-        with trace.span("pre.bwt", bytes=len(payload)):
+        with trace.span("pre.bwt", bytes=len(payload)) as sp:
             src = native.e8e9_transform(payload) if pre.e8e9 else payload
-            return native.bwt_encode(src), False
+            if bwt is None:
+                sp.add(card=0, rounds=0, batch=0)
+                return native.bwt_encode(src), False
+            out, rounds, batch = bwt.encode(src)
+            sp.add(card=1, rounds=rounds, batch=batch)
+            return out, False
     if pre.transform == 0 and pre.e8e9:
         return native.e8e9_transform(payload), False
     return payload, False
@@ -479,22 +489,27 @@ def code_jobs(model: Optional[Model], pre, jobs: Iterable[_Job], date: int,
     Each job is prepared on a pool of ``threads`` workers, at most twice
     that many jobs ahead of the oldest job not yet taken: its bytes
     (``job_bytes``), the preprocessor and the store test
-    (``prepare_payload``) and ``verify`` (``verify_payload``). A store
-    block, and with ``device`` None every block (the host engine), is
-    coded by the native engine on the pool. On ``device`` a modeled job
-    becomes a lane of the CM encode kernel: a launch goes out once the
-    pending lanes fill ``lanes_per_launch``, sized for a job of ``max_job``
-    raw bytes (the largest the planner makes), which bounds the payloads
-    held in memory. Results are taken in job order, so the lanes, the
+    (``prepare_payload``; on ``device`` a BWT's suffix sort, the jobs
+    waiting sorted together) and ``verify`` (``verify_payload``). A store block, and with ``device``
+    None every block (the host engine), is coded by the native engine on
+    the pool. On ``device`` a modeled job becomes a lane of the CM encode
+    kernel: a launch goes out once the pending lanes fill
+    ``lanes_per_launch``, sized for a job of ``max_job`` raw bytes (the
+    largest the planner makes), which bounds the payloads held in memory.
+    Results are taken in job order, so the lanes, the
     launches and every byte written are the same for any pool, and both
     engines write the same bytes; a job's error is raised when it is the
     oldest. ``journal`` supplies blocks coded by an interrupted run and
     records new ones."""
+    bwt = None
     if device is not None:
         from ..parallel import engine
         prefix = engine.selector(model)
         step = engine.lanes_per_launch(
             model, engine.encode_lane_io(model, max_job), device)
+        if pre.transform == 3:
+            from ..pre.bwt_device import BatchedBwt
+            bwt = BatchedBwt(device)
     parent = trace.current()
     pool = ThreadPoolExecutor(max_workers=threads)
     # (job, its journal block, else the future of its preparation)
@@ -510,7 +525,7 @@ def code_jobs(model: Optional[Model], pre, jobs: Iterable[_Job], date: int,
         whether it is the block)"""
         with trace.span("add.prepare", parent=parent) as sp:
             raw = job_bytes(job)
-            payload, store = prepare_payload(pre, raw)
+            payload, store = prepare_payload(pre, raw, bwt)
             sp.add(raw=len(raw), coded=len(payload), store=int(store))
             if verify and not store:
                 verify_payload(model, pre, raw, payload, job.first_frag)
